@@ -2,10 +2,13 @@
 //
 // Replaces hoigen_tpu/ops/pallas_cache.py::_kernel (the Pallas forward):
 //   out = ((X W^T + b) L) / s
-// X (N, D) f32, W (R, D) bf16, b (R,) f32, L (R, C) bf16, s (C,) f32;
-// out (N, C) f32. X enters the tensor cores as bf16 (round to nearest
-// even, as the TPU path's astype(bfloat16)); W and L come as bf16, cast
-// once by the wrapper as the TPU path casts them before its kernel. The
+// X (N, D) f32, W (R, D) bf16, b (R,) f32, L (R, C) bf16 stored with row
+// stride LC (C rounded up to a multiple of 8, the tail columns zero, so
+// that every 16-byte copy of a row of L stays inside it), s (C,) f32;
+// out (N, C) f32: only the first C columns are written. X enters the
+// tensor cores as bf16 (round to nearest even, as the TPU path's
+// astype(bfloat16)); W and L come as bf16, cast (and L padded) once by the
+// wrapper as the TPU path casts them before its kernel. The
 // affinity phi = X W^T + b is accumulated in f32 and rounded to bf16
 // before the second product, as the TPU kernel rounds phi to L's dtype.
 //
@@ -46,7 +49,7 @@ __global__ void __launch_bounds__(kThreads)
 cache_logits_fwd(const float* __restrict__ x, const bf16* __restrict__ w,
                  const float* __restrict__ b, const bf16* __restrict__ l,
                  const float* __restrict__ s, float* __restrict__ out, int N,
-                 int D, int R, int C) {
+                 int D, int R, int C, int LC) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int XS = D + 8;
   bf16* sX = reinterpret_cast<bf16*>(smem);            // kBN x XS
@@ -61,7 +64,7 @@ cache_logits_fwd(const float* __restrict__ x, const bf16* __restrict__ w,
   const int half = warp >> 2;       // R half (phase 1) / C half (phase 2)
 
   // W[r0:r0+64, :] and L[r0:r0+64, c0:c0+128]; rows past R and columns
-  // past C are zero-filled
+  // past LC are zero-filled
   auto stage_w = [&](int r0) {
     for (int i = tid; i < kBR * (D / 8); i += kThreads) {
       const int r = i / (D / 8), c = (i % (D / 8)) * 8;
@@ -72,9 +75,9 @@ cache_logits_fwd(const float* __restrict__ x, const bf16* __restrict__ w,
   auto stage_l = [&](int r0) {
     for (int i = tid; i < kBR * (kBC / 8); i += kThreads) {
       const int r = i / (kBC / 8), c = (i % (kBC / 8)) * 8;
-      const bool in = r0 + r < R && c0 + c < C;
+      const bool in = r0 + r < R && c0 + c < LC;
       cp_async16(sL + r * kLS + c,
-                 in ? l + (size_t)(r0 + r) * C + c0 + c : l, in);
+                 in ? l + (size_t)(r0 + r) * LC + c0 + c : l, in);
     }
   };
 
@@ -172,9 +175,9 @@ cache_logits_fwd(const float* __restrict__ x, const bf16* __restrict__ w,
 extern "C" int cache_logits_forward(const void* x, const void* w,
                                     const void* b, const void* l,
                                     const void* s, void* out, int N, int D,
-                                    int R, int C, void* stream) {
-  if (D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (C % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                    int R, int C, int LC, void* stream) {
+  if (D % 16 != 0 || LC % 8 != 0 || LC < C)
+    return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = sizeof(bf16) * ((size_t)(kBN + kBR) * (D + 8) + kBN * kPS +
                                 kBR * kLS);
   cudaError_t err = cudaFuncSetAttribute(
@@ -185,6 +188,7 @@ extern "C" int cache_logits_forward(const void* x, const void* w,
   cache_logits_fwd<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const bf16*>(l),
-      static_cast<const float*>(s), static_cast<float*>(out), N, D, R, C);
+      static_cast<const float*>(s), static_cast<float*>(out), N, D, R, C,
+      LC);
   return static_cast<int>(cudaGetLastError());
 }

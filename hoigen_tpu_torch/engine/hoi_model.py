@@ -1,14 +1,16 @@
-"""Full HOI model assembly, eval side (port of
-``hoigen_tpu/engine/hoi_model.py``): frozen DETR + frozen DINO +
-adapter-CLIP + UPT head.
+"""Full HOI model assembly (port of ``hoigen_tpu/engine/hoi_model.py``):
+frozen DETR + frozen DINO + adapter-CLIP + UPT head, with the eval step and
+the training step.
 
 Parameters are one merged nested dict ``{"upt": ..., "detr": ...,
-"dino": ...}`` (the JAX package splits trainable from frozen for its
-optimizer, which eval does not need) plus a dict of frozen buffers. Entry
-points take ``device=None``, meaning CUDA, and raise when no CUDA device is
-present; tests pass ``device="cpu"``.
+"dino": ...}`` whose trainable leaves require grad
+(``engine/partition.py``; the JAX package splits them into two trees
+instead), plus a dict of frozen buffers. The training step updates the
+parameters in place. Entry points take ``device=None``, meaning CUDA, and
+raise when no CUDA device is present; tests pass ``device="cpu"``.
 """
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,9 +20,12 @@ from ..models.clip.model import init_clip_params
 from ..models.detr.config import DETRConfig
 from ..models.detr.model import detr_forward, init_detr_params, postprocess
 from ..models.dino import dino_forward, init_dino_params
-from ..models.upt import UPTConfig, init_upt_params, upt_forward
+from ..labels.vcoco import detr_reserve_indices
+from ..models.upt import UPTConfig, init_upt_params, language_aware_loss, \
+    upt_forward
 from ..ops.pixels import device_normalize, pad_mask_from_sizes
 from ..ops.resize import batch_resize_normalize
+from .partition import lr_group, mark_trainable, trainable_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +58,8 @@ def to_device(tree, device):
 def init_hoi_model(gen, cfg: HOIModelConfig, caches, clip_params=None,
                    detr_params=None, dino_params=None, device=None):
     """Random init from the torch.Generator ``gen`` (drawn on the CPU, so a
-    seed gives the same weights on every device), moved to ``device``.
-    Returns (params, buffers)."""
+    seed gives the same weights on every device), moved to ``device``, the
+    trainable leaves marked ``requires_grad``. Returns (params, buffers)."""
     dev = resolve_device(device)
     if clip_params is None:
         clip_params = init_clip_params(gen, cfg.clip)
@@ -64,7 +69,7 @@ def init_hoi_model(gen, cfg: HOIModelConfig, caches, clip_params=None,
         dino_params = init_dino_params(gen)
     upt_params, buffers = init_upt_params(gen, cfg.upt, caches, clip_params)
     params = {"upt": upt_params, "detr": detr_params, "dino": dino_params}
-    return to_device(params, dev), to_device(buffers, dev)
+    return mark_trainable(to_device(params, dev)), to_device(buffers, dev)
 
 
 def _as_tensor(x, device):
@@ -72,9 +77,17 @@ def _as_tensor(x, device):
         else torch.as_tensor(np.asarray(x), device=device)
 
 
-def _forward(params, buffers, batch, cfg: HOIModelConfig):
-    """The eval branch of the JAX package's ``_forward``."""
+def _forward(params, buffers, batch, cfg: HOIModelConfig, training=False,
+             generator=None):
+    """The JAX package's ``_forward``: detections (eval) or (loss, aux)
+    (training). DETR and DINO run under no grad. ``generator``: dropout in
+    training (None runs none, as the JAX package's rng=None)."""
     dtype = getattr(torch, cfg.dtype)
+    clip_cfg = cfg.clip
+    if clip_cfg.fused_attention and not training:
+        # the fused CLIP attention is for its backward (K4); at eval the
+        # JAX package runs the plain math, and so does the port
+        clip_cfg = dataclasses.replace(clip_cfg, fused_attention=False)
     if "image_mask" in batch:
         image_mask = batch["image_mask"]
     else:
@@ -82,19 +95,31 @@ def _forward(params, buffers, batch, cfg: HOIModelConfig):
                                          batch["images"].shape[2],
                                          batch["images"].shape[3])
     images = device_normalize(batch["images"], dtype, pad_mask=image_mask)
-    detr_out = detr_forward(params["detr"], images, image_mask, cfg.detr)
+    with torch.no_grad():
+        detr_out = detr_forward(params["detr"], images, image_mask, cfg.detr)
     pred_logits = detr_out["pred_logits"].float()
     if pred_logits.shape[-1] == 92:
-        raise NotImplementedError(
-            "92-logit (COCO-pretrained V-COCO) detectors need the 92->81 "
-            "logit gather, which is not ported yet")
+        # COCO-pretrained V-COCO detector: gather the 91-slot logits down
+        # to 80 real classes (person first) and no-object before the softmax
+        pred_logits = pred_logits[..., torch.as_tensor(
+            detr_reserve_indices(), device=pred_logits.device)]
     # postprocess at the CLIP-stream frame, as the reference does
     post = postprocess(pred_logits, detr_out["pred_boxes"].float(),
                        batch["clip_sizes"])
     dino_apply = None
     if cfg.upt.use_dino and params["dino"] is not None:
         def dino_apply(im):
-            return dino_forward(params["dino"], im.to(dtype)).float()
+            with torch.no_grad():
+                return dino_forward(params["dino"], im.to(dtype)).float()
+    targets = gen_sample = None
+    if training:
+        targets = {"boxes_h": batch["boxes_h"], "boxes_o": batch["boxes_o"],
+                   "labels": batch["labels"], "valid": batch["gt_valid"]}
+        if cfg.upt.generate_feature and "gen_hum" in batch:
+            gen_sample = {"hum": batch["gen_hum"], "obj": batch["gen_obj"],
+                          "uni": batch["gen_uni"],
+                          "obj_cls": batch["gen_obj_cls"],
+                          "verb_multihot": batch["gen_verb_multihot"]}
     if "images_clip" in batch:
         images_clip = device_normalize(batch["images_clip"], torch.float32)
     else:
@@ -104,8 +129,116 @@ def _forward(params, buffers, batch, cfg: HOIModelConfig):
             batch["images"], batch["image_sizes"].float(),
             cfg.upt.clip_resolution)
     return upt_forward(params["upt"], buffers, post, images_clip,
-                       batch["clip_sizes"], cfg.clip, cfg.upt,
-                       dino_apply=dino_apply)
+                       batch["clip_sizes"], clip_cfg, cfg.upt,
+                       dino_apply=dino_apply, targets=targets,
+                       training=training, generator=generator,
+                       gen_sample=gen_sample)
+
+
+class GroupedAdamW:
+    """AdamW in two learning-rate groups, each clipped to its own global
+    norm, with the learning rate cut by 10 from update ``lr_drop_step`` on:
+    ``optax.multi_transform`` of ``chain(clip_by_global_norm(max_norm),
+    adamw(piecewise_constant_schedule(lr, {lr_drop_step: 0.1}),
+    weight_decay))`` per group, as the JAX package builds it.
+
+    As optax: the clip scales a group by max_norm / norm only where its
+    norm is not below max_norm (``torch.nn.utils.clip_grad_norm_`` would
+    add 1e-6 to the norm and scale always); every leaf of a group is
+    updated and decayed, a leaf that got no gradient as if its gradient
+    were zero. The Adam update itself is ``torch.optim.AdamW``'s, the same
+    formula as optax's (b1 0.9, b2 0.999, eps 1e-8) with another rounding
+    order."""
+
+    def __init__(self, named_params, lr_vit=1e-3, lr_head=1e-3,
+                 weight_decay=1e-4, lr_drop_step: Optional[int] = None,
+                 max_norm=0.1):
+        groups = {"vit": [], "head": []}
+        for path, t in named_params:
+            groups[lr_group(path)].append(t)
+        self.base_lr = {"vit": lr_vit, "head": lr_head}
+        self.lr_drop_step = lr_drop_step
+        self.max_norm = max_norm
+        self.count = 0
+        self.opt = torch.optim.AdamW(
+            [{"params": ts, "lr": self.base_lr[name], "name": name}
+             for name, ts in groups.items() if ts],
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+
+    def _lr(self, name):
+        drop = self.lr_drop_step is not None and self.count >= \
+            self.lr_drop_step
+        return self.base_lr[name] * (0.1 if drop else 1.0)
+
+    def zero_grad(self):
+        self.opt.zero_grad(set_to_none=False)
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.opt.param_groups:
+            for t in group["params"]:
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+            grads = [t.grad for t in group["params"]]
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            # no host synchronisation: the scale stays on the device
+            torch._foreach_mul_(grads, torch.where(
+                norm < self.max_norm, 1.0, self.max_norm / norm))
+            group["lr"] = self._lr(group["name"])
+        self.opt.step()
+        self.count += 1
+
+    def state_dict(self):
+        return {"adamw": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state):
+        self.opt.load_state_dict(state["adamw"])
+        self.count = int(state["count"])
+
+
+def make_optimizer(lr_vit=1e-3, lr_head=1e-3, weight_decay=1e-4,
+                   lr_drop_step: Optional[int] = None, max_norm=0.1):
+    """-> make(params) -> a :class:`GroupedAdamW` over the trainable leaves
+    of ``params`` (AdamW with two LR groups, StepLR x0.1 at lr_drop_step,
+    gradient clip 0.1 per group)."""
+    def make(params):
+        return GroupedAdamW(trainable_leaves(params), lr_vit, lr_head,
+                            weight_decay, lr_drop_step, max_norm)
+    return make
+
+
+def train_loss(params, buffers, batch, cfg: HOIModelConfig, generator=None):
+    """The training objective: the focal-loss sum over the positive count
+    (global sums of the batch), plus the language-aware term when
+    ``cfg.upt.LA``. -> (loss, aux). The batch's tensors must be on the
+    parameters' device."""
+    _, aux = _forward(params, buffers, batch, cfg, training=True,
+                      generator=generator)
+    total = aux["loss_sum"] / torch.clamp(aux["n_p"], min=1.0)
+    if cfg.upt.LA:
+        total = total + language_aware_loss(
+            params["upt"], buffers["origin_text_embeddings"],
+            cfg.upt.LA_weight)
+    return total, aux
+
+
+def make_train_step(cfg: HOIModelConfig, optimizer, device=None):
+    """-> step(params, buffers, batch, generator=None) -> metrics {"loss",
+    "n_p"} (device tensors: reading them waits for the card). One
+    optimizer step of ``optimizer`` (from :func:`make_optimizer`) on the
+    parameters, in place."""
+    dev = resolve_device(device)
+
+    def step(params, buffers, batch, generator=None):
+        batch = {k: _as_tensor(v, dev) for k, v in batch.items()}
+        optimizer.zero_grad()
+        loss, aux = train_loss(params, buffers, batch, cfg, generator)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(), "n_p": aux["n_p"].detach()}
+
+    return step
 
 
 def make_eval_step(cfg: HOIModelConfig, device=None):

@@ -1,0 +1,97 @@
+"""The training loop (port of ``hoigen_tpu/engine/train.py``): a host
+loop around the training step with a NaN guard, timing meters, periodic
+logging, iteration and epoch counters and a checkpoint every epoch."""
+import time
+from collections import deque
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from .checkpoint import restore_checkpoint, save_checkpoint
+from .partition import trainable_leaves
+
+
+def _key(path):
+    return "/".join(str(p) for p in path)
+
+
+class Trainer:
+    """``train_step`` and ``optimizer`` as from
+    ``engine.hoi_model.make_train_step`` and ``make_optimizer``; the step
+    updates ``params`` in place."""
+
+    def __init__(self, train_step: Callable, optimizer, params, buffers,
+                 print_interval: int = 500, output_dir: Optional[str] = None,
+                 checkpoint_every_epoch: bool = True):
+        self.step_fn = train_step
+        self.optimizer = optimizer
+        self.params = params
+        self.buffers = buffers
+        self.print_interval = print_interval
+        self.output_dir = output_dir
+        self.checkpoint_every_epoch = checkpoint_every_epoch
+        self.iteration = 0
+        self.epoch = 0
+        self._t_data = deque(maxlen=print_interval)
+        self._t_iter = deque(maxlen=print_interval)
+        self._losses = deque(maxlen=print_interval)
+
+    def state(self):
+        """The full training state: trainable parameters (by path),
+        optimizer state (with its update count), iteration and epoch."""
+        return {"trainable": {_key(p): t.detach() for p, t in
+                              trainable_leaves(self.params)},
+                "opt_state": self.optimizer.state_dict(),
+                "iteration": self.iteration, "epoch": self.epoch}
+
+    def restore(self, path: str) -> None:
+        """Resume the full training state saved at ``path``: the trainable
+        parameters are written into ``params`` in place (the optimizer
+        holds them), then the optimizer state and the counters."""
+        state = restore_checkpoint(path)
+        with torch.no_grad():
+            for p, t in trainable_leaves(self.params):
+                t.copy_(state["trainable"][_key(p)])
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.iteration = int(state["iteration"])
+        self.epoch = int(state["epoch"])
+
+    def run_epoch(self, batches: Iterable,
+                  seed: Optional[int] = None) -> float:
+        """batches: iterable of batch dicts. ``seed``: dropout runs, from a
+        generator seeded by (seed, iteration) at each step, so that a
+        resumed run draws what an uninterrupted one would; None runs no
+        dropout. Returns the epoch's mean loss."""
+        self.epoch += 1
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(
+                device=trainable_leaves(self.params)[0][1].device)
+        last = time.perf_counter()
+        epoch_loss, n = 0.0, 0
+        for batch in batches:
+            t0 = time.perf_counter()
+            self._t_data.append(t0 - last)
+            if gen is not None:
+                gen.manual_seed(seed * 1_000_003 + self.iteration)
+            metrics = self.step_fn(self.params, self.buffers, batch, gen)
+            loss = float(metrics["loss"])
+            if not np.isfinite(loss):
+                raise ValueError(
+                    f"HOI loss is not finite at iteration {self.iteration}")
+            self.iteration += 1
+            self._losses.append(loss)
+            epoch_loss += loss
+            n += 1
+            last = time.perf_counter()
+            self._t_iter.append(last - t0)
+            if self.iteration % self.print_interval == 0:
+                print(f"Epoch [{self.epoch}], Iter [{self.iteration}], "
+                      f"loss: {np.mean(self._losses):.4f}, "
+                      f"time[data/iter]: "
+                      f"[{np.sum(self._t_data):.2f}s/"
+                      f"{np.sum(self._t_iter):.2f}s]")
+        if self.checkpoint_every_epoch and self.output_dir:
+            save_checkpoint(self.output_dir, self.iteration, self.state())
+        return epoch_loss / max(n, 1)

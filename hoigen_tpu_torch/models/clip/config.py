@@ -1,6 +1,6 @@
 """CLIP image-tower configuration (the ViT fields of
-``hoigen_tpu/models/clip/config.py``; the text tower and the ModifiedResNet
-tower are not part of the port yet)."""
+``hoigen_tpu/models/clip/config.py``, with its defaults; the text tower and
+the ModifiedResNet tower are not part of the port yet)."""
 import dataclasses
 from typing import Tuple
 
@@ -18,6 +18,12 @@ class CLIPConfig:
     adapter_num_layers: int = 1
     adapter_bottleneck: int = 64
     adapter_heads: int = 2
+    # dropout inside the adapters' decoder layers, in training only
+    adapter_dropout: float = 0.1
+    # route the ViT blocks' self-attention through the fused attention
+    # kernels (ops/attention.py: K1 forward, K4 backward); the training step
+    # takes it, the eval step turns it off (engine/hoi_model.py)
+    fused_attention: bool = True
 
     @property
     def vision_heads(self) -> int:

@@ -5,9 +5,11 @@ Plain functions over nested parameter dicts with the JAX package's key
 paths and layouts (Linear weights (out, in)). ResidualAttentionBlock: a
 parallel bottleneck adapter on the raw input (x = x + adapter(x, prior)),
 then pre-LN self-attention and a QuickGELU MLP. LayerNorms run in float32
-whatever the activation dtype. The port runs the eval path: dropout is
-never applied, and self-attention is the plain math of :func:`mha` (at eval
-the JAX package turns its fused CLIP attention off). The text tower and the
+whatever the activation dtype. Dropout (the adapters') runs only when a
+``torch.Generator`` is given, as the JAX package's runs only with an rng.
+With ``cfg.fused_attention`` the blocks' self-attention goes through the
+fused attention kernels (``ops/attention.py``), whose backward is K4; the
+eval step turns it off, as the JAX package's does. The text tower and the
 ModifiedResNet tower come with later slices.
 """
 import math
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ...ops._weights import cast
+from ...ops.attention import fused_attention
 from .config import CLIPConfig
 
 LN_EPS = 1e-5
@@ -31,6 +34,17 @@ def layer_norm(x, p):
 
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
+
+
+def apply_dropout(x, rate, generator):
+    """Inverted dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), from ``generator`` (a torch.Generator on x's
+    device); the identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def mha(p, q, kv, num_heads, attn_mask=None, key_padding_mask=None,
@@ -62,36 +76,65 @@ def mha(p, q, kv, num_heads, attn_mask=None, key_padding_mask=None,
     return out @ cast(p["w_out"], dt).T + cast(p["b_out"], dt)
 
 
-def decoder_layer(p, tgt, memory, num_heads, key_padding_mask=None):
-    """Post-norm cross-attention decoder layer (self-attention elided), at
-    eval (no dropout). The adapters use no other form."""
+def decoder_layer(p, tgt, memory, num_heads, key_padding_mask=None,
+                  dropout=0.0, generator=None):
+    """Post-norm cross-attention decoder layer (self-attention elided), with
+    dropout after the attention, inside the feed-forward and after it. The
+    adapters use no other form."""
     tgt2 = mha(p["attn"], tgt, memory, num_heads,
                key_padding_mask=key_padding_mask)
-    tgt = layer_norm(tgt + tgt2, p["norm2"])
-    h = torch.relu(tgt @ p["lin1_w"].T + p["lin1_b"]) @ p["lin2_w"].T \
-        + p["lin2_b"]
-    return layer_norm(tgt + h, p["norm3"])
+    tgt = layer_norm(tgt + apply_dropout(tgt2, dropout, generator), p["norm2"])
+    h = apply_dropout(torch.relu(tgt @ p["lin1_w"].T + p["lin1_b"]), dropout,
+                 generator) @ p["lin2_w"].T + p["lin2_b"]
+    return layer_norm(tgt + apply_dropout(h, dropout, generator), p["norm3"])
 
 
-def adapter_forward(p, x, prior, prior_mask, cfg: CLIPConfig):
+def adapter_forward(p, x, prior, prior_mask, cfg: CLIPConfig,
+                    generator=None):
     """Instance adapter. x: (B, L, E); prior: (B, P, bottleneck);
     prior_mask: (B, P) True = pad."""
     down = torch.relu(x @ p["down_w"].T + p["down_b"])
     if prior is not None:
         for lp in p["layers"]:
             down = decoder_layer(lp, down, prior, cfg.adapter_heads,
-                                 key_padding_mask=prior_mask)
+                                 key_padding_mask=prior_mask,
+                                 dropout=cfg.adapter_dropout,
+                                 generator=generator)
     else:
-        down = decoder_layer(p["self_layer"], down, down, cfg.adapter_heads)
+        down = decoder_layer(p["self_layer"], down, down, cfg.adapter_heads,
+                             dropout=cfg.adapter_dropout,
+                             generator=generator)
     return (down @ p["up_w"].T + p["up_b"]) * p["scale"]
 
 
+def _mhsa_fused(p, x, num_heads):
+    """Unmasked self-attention through :func:`fused_attention` (K1 forward,
+    K4 backward on CUDA; their plain versions on the CPU). The same math as
+    mha(q=kv=x) with no masks."""
+    b, l, e = x.shape
+    hd = e // num_heads
+    dt = x.dtype
+    w_q, w_k, w_v = cast(p["w_qkv"], dt).chunk(3, dim=0)
+    b_q, b_k, b_v = cast(p["b_qkv"], dt).chunk(3, dim=0)
+
+    def heads(w, bias):
+        return (x @ w.T + bias).reshape(b, l, num_heads, hd).transpose(1, 2)
+
+    o = fused_attention(heads(w_q, b_q), heads(w_k, b_k), heads(w_v, b_v))
+    out = o.to(dt).transpose(1, 2).reshape(b, l, e)
+    return out @ cast(p["w_out"], dt).T + cast(p["b_out"], dt)
+
+
 def residual_block(p, x, prior, prior_mask, num_heads, cfg: CLIPConfig,
-                   attn_mask=None):
+                   attn_mask=None, generator=None):
     if "adapter" in p:
-        x = x + adapter_forward(p["adapter"], x, prior, prior_mask, cfg)
+        x = x + adapter_forward(p["adapter"], x, prior, prior_mask, cfg,
+                                generator=generator)
     h = layer_norm(x, p["ln_1"])
-    x = x + mha(p["attn"], h, h, num_heads, attn_mask=attn_mask)
+    if attn_mask is None and cfg.fused_attention:
+        x = x + _mhsa_fused(p["attn"], h, num_heads)
+    else:
+        x = x + mha(p["attn"], h, h, num_heads, attn_mask=attn_mask)
     h = layer_norm(x, p["ln_2"])
     h = quick_gelu(h @ p["mlp_fc_w"].T + p["mlp_fc_b"])
     return x + h @ p["mlp_proj_w"].T + p["mlp_proj_b"]
@@ -110,10 +153,11 @@ def _patch_embed(x, conv_w):
 
 
 def encode_image(params, images, cfg: CLIPConfig, prior=None,
-                 prior_mask=None):
+                 prior_mask=None, generator=None):
     """images: (B, 3, H, W) -> (global (B, embed), local (B, gh, gw, embed)).
     ln_post and the projection apply to every token; CLS is the global
-    feature, the rest form the local grid."""
+    feature, the rest form the local grid. ``generator``: the adapters'
+    dropout (training); None runs none."""
     p = params["visual"]
     x = _patch_embed(images, p["conv1_w"])
     b, n_patch, width = x.shape
@@ -121,7 +165,8 @@ def encode_image(params, images, cfg: CLIPConfig, prior=None,
     x = torch.cat([cls, x], dim=1) + p["positional_embedding"]
     x = layer_norm(x, p["ln_pre"])
     for bp in p["blocks"]:
-        x = residual_block(bp, x, prior, prior_mask, cfg.vision_heads, cfg)
+        x = residual_block(bp, x, prior, prior_mask, cfg.vision_heads, cfg,
+                           generator=generator)
     x = layer_norm(x, p["ln_post"])
     x = x @ p["proj"]
     gh = gw = int(math.isqrt(n_patch))

@@ -1,26 +1,27 @@
-"""UPT, the unary-pairwise HOI head: eval side (port of
-``hoigen_tpu/models/upt.py``).
+"""UPT, the unary-pairwise HOI head (port of ``hoigen_tpu/models/upt.py``).
 
 DETR postprocess -> select_region_proposals (NMS + min/max instance
 selection) -> detection priors (score + box + object embedding -> MLP) ->
 adapter-CLIP image encoder -> roi_align_mean pooled human/object/union
 features -> the logit branches (cache H/O/U or HO/U, text, CLIP-global
 cache, DINO cache) -> sigmoid(logits) * prior^lambda detections, gathered
-through the per-object verb LUT. All shapes are static; padding slots are
-masked. On CUDA with ``use_pallas_cache`` the H/O/U cache branches run the
-fused cache-scoring kernel (``ops/pallas_cache.py``). The training branch
-(ground-truth association, focal loss, generated features) comes with the
-training slice.
+through the per-object verb LUT (eval), or ground-truth association, one
+generated pair per image and the masked focal loss (training). All shapes
+are static; padding slots are masked. On CUDA with ``use_pallas_cache`` the
+H/O/U cache branches run the fused cache-scoring kernel
+(``ops/pallas_cache.py``).
 """
 import dataclasses
 
 import numpy as np
 import torch
 
+from ..ops.boxes import box_iou, recover_boxes
+from ..ops.focal import binary_focal_loss_with_logits, prior_modulated_logits
 from ..ops.pallas_cache import fused_cache_logits
 from ..ops.roi_align import roi_align_mean
 from .clip.config import CLIPConfig
-from .clip.model import encode_image, mha
+from .clip.model import apply_dropout, encode_image, mha
 from .proposals import ProposalConfig, make_pairs, pair_indices, \
     select_region_proposals
 
@@ -243,20 +244,63 @@ def _l2(f):
         min=1e-12)
 
 
+def associate_with_ground_truth(bh, bo, gt_bh, gt_bo, gt_cls, gt_valid,
+                                image_size, cfg: UPTConfig):
+    """bh/bo: (B, P, 4) absolute pair boxes; gt_bh/gt_bo (B, G, 4)
+    normalised cxcywh; gt_cls (B, G) verb or HOI ids; gt_valid (B, G);
+    image_size (B, 2). -> multihot (B, P, C)."""
+    gt_h = recover_boxes(gt_bh, image_size)
+    gt_o = recover_boxes(gt_bo, image_size)
+    iou = torch.minimum(box_iou(bh, gt_h), box_iou(bo, gt_o))  # (B, P, G)
+    match = (iou >= cfg.fg_iou_thresh) & gt_valid[..., None, :]
+    # as jax.nn.one_hot: an id outside [0, C) (a padded GT slot) gives a
+    # zero row, where F.one_hot would raise
+    onehot = (gt_cls[..., None] == torch.arange(
+        cfg.num_classes, device=gt_cls.device)).float()
+    return torch.clamp(match.float() @ onehot, 0.0, 1.0)
+
+
+def interaction_loss_sum(logits, prior, labels, pair_valid,
+                         alpha=0.5, gamma=0.2):
+    """Unnormalised masked focal-loss sum; the caller divides by the
+    positive count n_p. prior: (2, ..., P, C); entries with a zero prior
+    product are excluded."""
+    pp = prior[0] * prior[1]
+    weights = (pp > 0) & pair_valid[..., None]
+    x = prior_modulated_logits(logits, pp)
+    loss = binary_focal_loss_with_logits(x, labels, alpha=alpha, gamma=gamma,
+                                         reduction="none")
+    return torch.sum(loss * weights)
+
+
+def language_aware_loss(params, origin_text_embeddings, weight: float):
+    """The optional LA regulariser: cross-entropy between the learned
+    text-adapter rows and the frozen CLIP text embeddings."""
+    w = params["text_w"]
+    w = w / torch.linalg.vector_norm(w, dim=-1, keepdim=True)
+    logp = torch.log_softmax(w @ origin_text_embeddings.T, dim=-1)
+    return -weight * logp.diagonal().mean()
+
+
 def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
                 clip_cfg: CLIPConfig, cfg: UPTConfig, dino_apply=None,
-                training=False):
-    """One batched eval step.
+                targets=None, training=False, generator=None,
+                gen_sample=None):
+    """One batched step.
 
     detr_post: DETR postprocess at the CLIP-stream image sizes:
       scores/labels (B, Q), boxes (B, Q, 4).
     images_clip: (B, 3, r, r) normalised CLIP stream; image_sizes (B, 2).
     dino_apply: optional callable images -> (B, 2048) DINO features.
-    Returns the detection dict: dense and compact (verb-LUT) scores, verb
-    ids, slot boxes/scores/labels/valid, pair_valid, objects, logits."""
-    if training:
-        raise NotImplementedError("the training branch of upt_forward is "
-                                  "not ported yet")
+    targets (training): boxes_h/boxes_o (B, G, 4) normalised cxcywh,
+      labels (B, G) class ids, valid (B, G) bool.
+    generator (training): a torch.Generator on the device for the
+      adapters' and the ROI features' dropout; None runs no dropout.
+    gen_sample (training, generate_feature): hum/obj/uni (B, 512)
+      generated features, verb_multihot (B, C), obj_cls (B,).
+    Eval returns the detection dict: dense and compact (verb-LUT) scores,
+    verb ids, slot boxes/scores/labels/valid, pair_valid, objects, logits.
+    Training returns (loss, aux) with aux's loss_sum, n_p and gt_labels."""
     p_cfg = cfg.proposals
     boxes, scores, labels, valid = select_region_proposals(
         detr_post["scores"], detr_post["labels"], detr_post["boxes"], p_cfg)
@@ -267,7 +311,7 @@ def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
         prior_tokens = prior_mask = None
     feat_global, feat_local = encode_image(
         params["clip"], images_clip, clip_cfg, prior=prior_tokens,
-        prior_mask=prior_mask)
+        prior_mask=prior_mask, generator=generator)
     feat_global = feat_global / torch.linalg.vector_norm(
         feat_global, dim=-1, keepdim=True)
     if cfg.use_mlp_proj:
@@ -285,6 +329,11 @@ def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
     fmap = feat_local.permute(0, 3, 1, 2)                   # (B, C, g, g)
     single = roi_align_mean(fmap, boxes, (7, 7), spatial_scale)
     union = roi_align_mean(fmap, bu, (7, 7), spatial_scale)
+    # feat_mask_type 0: Dropout(0.2) on the pooled ROI features, in
+    # training only; type 1 skips it
+    if training and cfg.feat_mask_type == 0:
+        single = apply_dropout(single, 0.2, generator)
+        union = apply_dropout(union, 0.2, generator)
 
     x_idx, y_idx = pair_indices(p_cfg, boxes.device)
     hum = _l2(single[:, x_idx])
@@ -296,6 +345,10 @@ def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
     prior = compute_prior_scores(scores, labels, pair_valid,
                                  buffers["object_class_multihot"],
                                  x_idx, y_idx, training, cfg)
+    if training:
+        return _training_loss(params, buffers, logits, prior, pair_valid,
+                              bh, bo, targets, image_sizes, dino_feats,
+                              gen_sample, cfg)
     pp = prior[0] * prior[1]
     # mask first, so that a non-finite logit cannot leak into a zero-prior
     # (padding) slot
@@ -308,6 +361,41 @@ def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
                 detection_scores_cmp=torch.gather(det_scores, -1, lut)
                 * buffers["verb_lut_valid"][objects],
                 detection_verbs=lut)
+
+
+def _training_loss(params, buffers, logits, prior, pair_valid, bh, bo,
+                   targets, image_sizes, dino_feats, gen_sample,
+                   cfg: UPTConfig):
+    """The training tail of upt_forward: labels by ground-truth
+    association, one generated pair per image appended, and the masked
+    focal loss over the positive count. -> (loss, aux)."""
+    gt_labels = associate_with_ground_truth(
+        bh, bo, targets["boxes_h"], targets["boxes_o"], targets["labels"],
+        targets["valid"], image_sizes, cfg)
+    if cfg.generate_feature and gen_sample is not None:
+        g_h, g_o, g_u = (_l2(gen_sample[k])[:, None]
+                         for k in ("hum", "obj", "uni"))
+        # the generated pair scores the global cache with its own union
+        # feature, not the image CLS; the DINO branch keeps the image's
+        # features, as in the JAX package
+        g_logits = compute_logits(params, buffers, g_h, g_o, g_u, g_u[:, 0],
+                                  dino_feats, cfg)
+        logits = torch.cat([logits, g_logits], dim=1)
+        g_prior = buffers["object_class_multihot"][
+            gen_sample["obj_cls"].long()][None, :, None, :].expand(
+                2, *g_logits.shape)
+        prior = torch.cat([prior, g_prior], dim=2)
+        gt_labels = torch.cat(
+            [gt_labels, gen_sample["verb_multihot"][:, None, :]], dim=1)
+        pair_valid = torch.cat(
+            [pair_valid, pair_valid.new_ones((pair_valid.shape[0], 1))],
+            dim=1)
+    n_p = torch.sum(gt_labels * pair_valid[..., None])
+    loss_sum = interaction_loss_sum(logits, prior, gt_labels, pair_valid,
+                                    alpha=cfg.alpha, gamma=cfg.gamma)
+    aux = dict(logits=logits, prior=prior, pair_valid=pair_valid,
+               gt_labels=gt_labels, n_p=n_p, loss_sum=loss_sum)
+    return loss_sum / torch.clamp(n_p, min=1.0), aux
 
 
 # ------------------------------------------------------------------ init --

@@ -7,6 +7,7 @@ as long as the source tensors live and are not changed in place (torch
 bumps a tensor's version counter on every in-place write), so the eval
 step does not recast its frozen weights at every launch.
 """
+import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 _copies = WeakIdKeyDictionary()
@@ -16,13 +17,23 @@ def prepared(tag, sources, make):
     """``make()``, cached under the first of ``sources`` and ``tag``; made
     anew when any source is another tensor or has been written since.
     ``make`` returns new tensors, never ``sources[0]`` or a view of it,
-    which would keep the entry's key alive."""
+    which would keep the entry's key alive.
+
+    Two copies are never served, so that none reaches a training graph:
+    while grad mode is on, a source that requires grad gets a fresh
+    conversion, uncached (it carries the autograd history the gradient
+    needs); and a copy made under ``inference_mode`` (an inference tensor,
+    which autograd refuses to save) is remade when asked for outside it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        return make()
     stamp = tuple((id(t), t._version) for t in sources)
     entries = _copies.setdefault(sources[0], {})
     hit = entries.get(tag)
-    if hit is None or hit[0] != stamp:
-        hit = entries[tag] = (stamp, make())
-    return hit[1]
+    if (hit is None or hit[0] != stamp
+            or (hit[1] and not torch.is_inference_mode_enabled())):
+        hit = entries[tag] = (stamp, torch.is_inference_mode_enabled(),
+                              make())
+    return hit[2]
 
 
 def cast(t, dtype):

@@ -8,6 +8,8 @@ plain math at every kernel call site, so the two steps compute the same
 function; the JAX parameters are cast to float32 (the tests run
 JAX with x64 enabled) and handed to the port through the bridge.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,3 +149,63 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         thm.init_hoi_model(torch.Generator().manual_seed(0), tcfg,
                            t_random_caches(24, 2, num_objects=10))
+
+
+def test_detr_reserve_indices_match_the_jax_tables():
+    from hoigen_tpu.labels.vcoco import VCOCO_LABELS
+
+    from hoigen_tpu_torch.labels.vcoco import detr_reserve_indices
+    assert detr_reserve_indices() == VCOCO_LABELS.detr_reserve_indices
+    assert len(detr_reserve_indices()) == 81
+
+
+def test_eval_step_with_a_92_logit_detector_matches_jax():
+    """A COCO-pretrained V-COCO detector (91 classes + no-object = 92
+    logits): the 92->81 logit gather before the postprocess, on both
+    sides, then the whole eval step as above. The person logit (COCO slot
+    1) is favoured so that the random detector forms human pairs."""
+    jcfg, tcfg = _configs()
+    detr91 = dict(DETR_KW, num_classes=92)
+    # DINO off: the gather is all this test adds to the one above
+    jcfg = jhm.HOIModelConfig(
+        clip=jcfg.clip, detr=JDETRConfig(**detr91),
+        upt=dataclasses.replace(jcfg.upt, use_dino=False), dtype="float32")
+    tcfg = thm.HOIModelConfig(
+        clip=tcfg.clip, detr=TDETRConfig(**detr91),
+        upt=dataclasses.replace(tcfg.upt, use_dino=False), dtype="float32")
+    caches = j_random_caches(24, 2, num_objects=81)
+    # the detector's random weights drawn by the port, in the layout both
+    # packages share (the JAX package's random ResNet-50 init is slow on
+    # the CPU)
+    from hoigen_tpu_torch.models.detr.model import init_detr_params
+    detr = jax.tree.map(jnp.asarray, bridge.to_numpy(init_detr_params(
+        torch.Generator().manual_seed(1), tcfg.detr)))
+    trainable, frozen, buffers = jhm.init_hoi_model(
+        jax.random.PRNGKey(1), jcfg, caches, detr_params=detr)
+    frozen = _spread_bbox_head(_f32(frozen))
+    ce = frozen["detr"]["class_embed"]
+    assert ce["b"].shape == (92,)
+    frozen["detr"]["class_embed"] = {"w": ce["w"],
+                                     "b": ce["b"].at[1].add(10.0)}
+    trainable, buffers = _f32(trainable), _f32(buffers)
+    batch = jhm.make_example_batch(jcfg, batch_size=2, detr_hw=DETR_HW,
+                                   device_clip_stream=True)
+    want = jax.jit(jhm.make_eval_step(jcfg))(trainable, frozen, buffers,
+                                             batch)
+    want = {k: np.asarray(v) for k, v in want.items()}
+
+    as_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    params, tbuf = bridge.params_from_jax(as_np(trainable), as_np(frozen),
+                                          as_np(buffers), device="cpu")
+    got = thm.make_eval_step(tcfg, device="cpu")(params, tbuf, batch)
+    got = {k: v.numpy() for k, v in got.items()}
+
+    assert want["pair_valid"].any() and (want["detection_scores"] > 0).any()
+    for k in ("pair_valid", "objects", "detection_verbs"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # tolerances as in test_eval_step_matches_jax
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(got["detection_scores"],
+                               want["detection_scores"], rtol=2e-4,
+                               atol=2e-5)

@@ -12,14 +12,21 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from hoigen_tpu.ops.attention import _pallas_attention_bwd as j_attention_bwd
 from hoigen_tpu.ops.attention import fused_attention as j_fused_attention
 from hoigen_tpu.ops.fused_resnet import \
     fused_bottleneck_chain as j_fused_bottleneck_chain
 from hoigen_tpu.ops.pallas_cache import _fused_forward as j_cache_forward
+from hoigen_tpu.ops.pallas_cache import \
+    fused_cache_logits as j_fused_cache_logits
 
-from hoigen_tpu_torch.ops.attention import fused_attention
+from hoigen_tpu_torch.ops.attention import attention_bwd, \
+    attention_bwd_reference, attention_reference, fused_attention
 from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
-from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
+from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
+    fused_cache_logits, kernel_operands
 
 
 def _t(a, dtype=torch.float32):
@@ -70,6 +77,106 @@ def test_attention_plain_keeps_the_bf16_rounding_points():
                           _t(v, torch.bfloat16), key_bias=_t(bias))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2)
+
+
+# ------------------------------------------------- K4 attention backward
+def _bwd_inputs(lq, with_bias, seed=4):
+    rng = np.random.default_rng(seed)
+    b, h, lk, d = 2, 3, 70, 32
+    q = rng.normal(size=(b, h, lq, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, h, lk, d)).astype(np.float32)
+            for _ in range(2))
+    g = rng.normal(size=(b, h, lq, d)).astype(np.float32)
+    # -1e9 on 20% of the keys, small values elsewhere, so that the bias
+    # gradient of the unmasked keys is not trivially zero
+    bias = np.where(rng.random((b, lk)) < 0.2, -1e9,
+                    rng.normal(size=(b, lk)) * 0.5).astype(np.float32) \
+        if with_bias else None
+    return q, k, v, g, bias
+
+
+BWD_CASES = pytest.mark.parametrize(
+    "lq,with_bias", [(70, True), (70, False), (36, True)],
+    ids=["bias", "no-bias", "lq-ne-lk"])
+
+
+@BWD_CASES
+def test_attention_bwd_plain_matches_pallas_interpret(lq, with_bias):
+    """K4 (ops/attention.py::_attn_bwd_kernel): dq, dk, dv and d(key_bias)
+    of the plain version against the Pallas backward in interpret mode,
+    from the same forward output. 70 keys (not a multiple of 128, so the
+    TPU kernel pads Lk with -1e9), Lq != Lk in one case. 2e-5 relative to
+    each gradient's scale: both sides f32, sums over keys, queries and
+    heads in another order."""
+    q, k, v, g, bias = _bwd_inputs(lq, with_bias)
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))   # a Python float: no x64
+    jb = np.zeros((q.shape[0], k.shape[2]), np.float32) if bias is None \
+        else bias
+    out = np.asarray(j_fused_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        key_bias=jnp.asarray(jb), interpret=True))
+    want = j_attention_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(jb), jnp.asarray(out), jnp.asarray(g),
+                           scale, True, 384)
+    got = attention_bwd_reference(_t(q), _t(k), _t(v),
+                                  None if bias is None else _t(bias),
+                                  _t(out), _t(g))
+    assert got[3] is None if bias is None else got[3].shape == jb.shape
+    for name, a, w in zip(("dq", "dk", "dv", "db"), got, want):
+        if a is None:
+            continue
+        w = np.asarray(w)
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        np.testing.assert_allclose(a.numpy(), w, rtol=0,
+                                   atol=2e-5 * np.abs(w).max(), err_msg=name)
+
+
+@BWD_CASES
+def test_attention_function_grads_match_autograd(lq, with_bias):
+    """The autograd.Function around K1/K4 (on the CPU, their plain
+    versions) against torch autograd through the plain forward: the
+    gradients of q, k, v and the key bias, each in its own slot, and no
+    bias gradient without a bias. 2e-5 of each gradient's scale."""
+    q, k, v, g, bias = _bwd_inputs(lq, with_bias, seed=6)
+
+    def grads(fn):
+        ins = [_t(a).requires_grad_() for a in (q, k, v)]
+        tb = None if bias is None else _t(bias).requires_grad_()
+        out = fn(*ins, tb)
+        out.backward(_t(g))
+        return [a.grad for a in ins] + [None if tb is None else tb.grad]
+
+    got = grads(fused_attention)
+    want = grads(attention_reference)
+    for name, a, w in zip(("dq", "dk", "dv", "db"), got, want):
+        if w is None:
+            assert a is None
+            continue
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=0,
+                                   atol=2e-5 * w.abs().max().item(),
+                                   err_msg=name)
+    # no bias gradient is computed where none is asked for
+    _, _, _, db = attention_bwd(_t(q), _t(k), _t(v),
+                                None if bias is None else _t(bias),
+                                fused_attention(_t(q), _t(k), _t(v)), _t(g),
+                                bias_grad=False)
+    assert db is None
+
+
+def test_attention_bwd_plain_rounds_at_the_kernel_points():
+    """compute_dtype=bf16 (the card's check): f32 inputs round to bf16 for
+    every product, as K4 does; the result differs from the f32 one by
+    about a bf16 ulp of scale, no more."""
+    q, k, v, g, bias = _bwd_inputs(70, True, seed=8)
+    args = [_t(a) for a in (q, k, v)] + [_t(bias)]
+    out = attention_reference(*args)
+    f32 = attention_bwd_reference(*args, out, _t(g))
+    b16 = attention_bwd_reference(*args, out, _t(g),
+                                  compute_dtype=torch.bfloat16)
+    for a, w in zip(b16, f32):
+        assert a.dtype == torch.float32
+        err = (a - w).abs().max().item() / w.abs().max().item()
+        assert 1e-5 < err < 2 ** -5
 
 
 # ------------------------------------------------- K2 fused bottleneck chain
@@ -143,6 +250,66 @@ def test_cache_logits_plain_matches_pallas_interpret(dtype):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
+@pytest.mark.parametrize("c", [117, 236])
+def test_cache_logits_padded_operands_match_pallas_interpret(c):
+    """K3 at class counts that are not a multiple of 8: the 117-verb HICO
+    configuration and V-COCO's 236 interactions. The kernel's operands
+    (``kernel_operands``: bf16 W, L padded with zero columns and s with
+    ones to a multiple of 8) through the plain version, cut back to C
+    columns, against the Pallas kernel in interpret mode on the unpadded
+    operands, bf16 on both sides; 1e-4 as above."""
+    rng = np.random.default_rng(12)
+    n, d, r = 70, 128, 2 * c
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    w = rng.normal(size=(r, d)).astype(np.float32) * 0.1
+    b = -np.ones(r, np.float32)
+    l = (rng.random((r, c)) < 0.05).astype(np.float32)
+    s = l.sum(0) + 1.0
+    want = np.asarray(j_cache_forward(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(l),
+        jnp.asarray(s), interpret=True, compute_dtype=jnp.bfloat16))
+    w16, lp, sp = kernel_operands(_t(w), _t(l), _t(s))
+    lc = -(-c // 8) * 8
+    assert lp.shape == (r, lc) and lp.dtype == torch.bfloat16
+    assert sp.shape == (lc,) and not lp[:, c:].any()
+    got = cache_logits_reference(_t(x), w16.float(), _t(b), lp.float(), sp,
+                                 torch.bfloat16)
+    np.testing.assert_allclose(got[:, :c].numpy(), want, atol=1e-4)
+
+
+def test_cache_logits_function_grads_match_jax():
+    """The autograd.Function around K3: its backward (the JAX package's
+    ``_bwd`` as plain f32 products) against jax.grad of the custom_vjp
+    ``fused_cache_logits(interpret=True)``, for x (with leading dims), w and
+    b, at 117 classes. Both sides f32: 1e-4 of each gradient's scale."""
+    rng = np.random.default_rng(13)
+    c = 117
+    x = rng.normal(size=(2, 35, 64)).astype(np.float32)
+    w = rng.normal(size=(2 * c, 64)).astype(np.float32) * 0.1
+    b = -np.ones(2 * c, np.float32)
+    l = (rng.random((2 * c, c)) < 0.05).astype(np.float32)
+    s = l.sum(0) + 1.0
+    g = rng.normal(size=(2, 35, c)).astype(np.float32)
+
+    def jloss(x_, w_, b_):
+        out = j_fused_cache_logits(x_, w_, b_, jnp.asarray(l),
+                                   jnp.asarray(s), True, jnp.float32)
+        return jnp.sum(out * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ins = [_t(a).requires_grad_() for a in (x, w, b)]
+    lt, st = _t(l).requires_grad_(), _t(s)
+    out = fused_cache_logits(*ins, lt, st, compute_dtype=torch.float32)
+    out.backward(_t(g))
+    assert lt.grad is None
+    for name, a, wnt in zip(("dx", "dw", "db"), ins, want):
+        wnt = np.asarray(wnt)
+        np.testing.assert_allclose(a.grad.numpy(), wnt, rtol=0,
+                                   atol=1e-4 * np.abs(wnt).max(),
+                                   err_msg=name)
+
+
 def test_cache_logits_keeps_leading_dims():
     x, w, b, l, s = _cache_inputs()
     x3 = x[:68].reshape(2, 34, -1)
@@ -156,11 +323,11 @@ def test_wrappers_count_no_launch_on_the_cpu():
     """The launch counters count CUDA launches only: the plain versions
     that a CPU tensor takes leave them untouched."""
     before = (fused_attention.launches, fused_bottleneck_chain.launches,
-              fused_cache_logits.launches)
+              fused_cache_logits.launches, attention_bwd.launches)
     x, w, b, l, s = _cache_inputs()
     fused_cache_logits(_t(x), _t(w), _t(b), _t(l), _t(s))
-    q = torch.zeros(1, 1, 4, 32)
-    fused_attention(q, q, q)
+    q = torch.zeros(1, 1, 4, 32, requires_grad=True)
+    fused_attention(q, q, q).sum().backward()
     fused_bottleneck_chain(torch.zeros(1, 3, 3, 8), [
         {"conv1": {"w": torch.zeros(2, 8, 1, 1), "scale": torch.ones(2),
                    "bias": torch.zeros(2)},
@@ -169,7 +336,7 @@ def test_wrappers_count_no_launch_on_the_cpu():
          "conv3": {"w": torch.zeros(8, 2, 1, 1), "scale": torch.ones(8),
                    "bias": torch.zeros(8)}}])
     assert (fused_attention.launches, fused_bottleneck_chain.launches,
-            fused_cache_logits.launches) == before
+            fused_cache_logits.launches, attention_bwd.launches) == before
 
 
 def test_prepared_weights_are_made_once_and_follow_writes():
