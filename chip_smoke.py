@@ -11,9 +11,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the HICO-DET eval step and training step give it (the attention
-   backward through its autograd.Function, all four gradients), and time
-   the kernel, the plain version and one library call computing the same
-   function;
+   backward through its autograd.Function, all four gradients; the cache
+   scoring also launch by launch, twice for bit-identity, and at ragged
+   and V-COCO shapes), and time the kernel, the plain version and one
+   library call computing the same function, each by CUDA events around
+   back-to-back calls and by the device time of the call's kernels alone
+   (torch.profiler);
 4. check the port's eval step on a small input against the same step on
    the CPU;
 5. drive the full-width eval step (DETR-R50 and DINO-R50 in bf16, the
@@ -165,19 +168,31 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
     def record(name, source, replaces, got, want, fn, plain, library,
                nbytes_, op_times, iters):
         err = check(name, got, want)
-        ms = cuda_ms(fn, iters)
-        plain_ms = cuda_ms(plain, max(1, iters // 4))
-        library_ms = cuda_ms(library, iters)
+        runs = ((fn, iters), (plain, max(1, iters // 4)), (library, iters))
+        ms, plain_ms, library_ms = (cuda_ms(f, n) for f, n in runs)
+        # the event window above also holds whatever host time the calls
+        # take; the profiler's sum over the call's own kernels does not
+        profiled = [profile_steps(f, n) for f, n in runs]
+        dev_ms, plain_dev, library_dev = (p[0] for p in profiled)
         bound_ms, bound_by = bound(nbytes_, op_times)
+
+        def fmt(v):
+            return "not measured" if v is None else f"{v:.4f}"
         log(f"kernel {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {library_ms:.4f} bound {bound_ms * 1e3:.2f} us "
+            f"library_ms {library_ms:.4f}; device only: kernel "
+            f"{fmt(dev_ms)} plain {fmt(plain_dev)} library "
+            f"{fmt(library_dev)}; bound {bound_ms * 1e3:.2f} us "
             f"({bound_by})")
+        for what, p in zip(("kernel", "library"), profiled[::2]):
+            log(f"  {what} call, device ms by kernel: " + "; ".join(
+                f"{k[:60]} {v:.4f}" for k, v in p[1]))
         records.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "status": "ported, checked",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+            "library_ms": library_ms, "kernel_device_ms": dev_ms,
+            "plain_device_ms": plain_dev, "library_device_ms": library_dev})
 
     # K1: the DETR encoder's self-attention, (B, 8, 25*42, 32) bf16, with
     # the key bias of the batch's padding at the C5 stride
@@ -268,9 +283,63 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
            nbytes(feats, w16, bb, lab16, s) + rows * lab.shape[1] * 4,
            (2 * rows * w.shape[0] * (w.shape[1] + lab.shape[1])
             / BF16_TC_FLOPS,), iters=50)
+    check_cache_kernel(feats, w, bb, lab, s, check)
     check_training_kernels(train_model, train_cfg, b, n_sm, clock_hz, check,
                            record)
     return records
+
+
+def check_cache_kernel(x, w, b, lab, s, check):
+    """Phase 3, K3 beyond its timed check: each of its two launches alone
+    against an f32 product (TF32 off) at the eval shapes, two calls bit
+    for bit, and the whole against its plain version off the main path's
+    shapes: ragged (N 70, D 128, R 150, C 37: N not a multiple of the 64
+    rows of a block, R neither of 8 nor of the 64-wide K box, C not of 8),
+    where the phi scratch's columns R..RP-1 must be exactly zero, and
+    V-COCO's 236 classes (R 472)."""
+    import torch
+
+    from hoigen_tpu_torch.ops.pallas_cache import _kernel_forward, \
+        cache_logits_reference, kernel_operands
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        r, c = lab.shape
+        out, phi = _kernel_forward(x, w, b, lab, s)
+        w16, lt, _ = kernel_operands(w, lab, s)
+        x16 = x.reshape(-1, x.shape[-1]).to(bf16).float()
+        check("cache_logits_phi_launch", phi[:, :r],
+              (torch.matmul(x16, w16.float().t()) + b).to(bf16))
+        check("cache_logits_logits_launch", out.reshape(-1, c),
+              torch.matmul(phi.float(), lt.float().t())[:, :c] / s)
+        if not torch.equal(out, _kernel_forward(x, w, b, lab, s)[0]):
+            fail("cache_logits: two calls on the same inputs differ")
+        log("kernel cache_logits: two calls on the same inputs are "
+            "bit-identical ok")
+
+        shapes = {"cache_logits_ragged": (70, 128, 150, 37),
+                  "cache_logits_c236": (1800, 512, 472, 236)}
+        for name, (n, d, r, c) in shapes.items():
+            xs = torch.randn((n, d), generator=gen)
+            ws = torch.randn((r, d), generator=gen)
+            xs, ws = (t / t.norm(dim=-1, keepdim=True) for t in (xs, ws))
+            bs = 0.1 * torch.randn(r, generator=gen) - 1.0
+            ls = (torch.rand((r, c), generator=gen) < 0.05).float()
+            ss = ls.sum(0) + 1.0
+            xs, ws, bs, ls, ss = (t.cuda() for t in (xs, ws, bs, ls, ss))
+            # leave NaN in the block that the scratch is likely to reuse,
+            # so that an unwritten column shows
+            torch.full((n, -(-r // 8) * 8), math.nan, dtype=bf16,
+                       device="cuda")
+            got, phi = _kernel_forward(xs, ws, bs, ls, ss)
+            check(name, got, cache_logits_reference(xs, ws, bs, ls, ss, bf16))
+            if phi.shape[1] > r:
+                if phi[:, r:].any():
+                    fail(f"{name}: phi scratch columns {r}.."
+                         f"{phi.shape[1] - 1} are not zero")
+                log(f"kernel {name}: phi scratch columns {r}.."
+                    f"{phi.shape[1] - 1} exactly zero ok")
 
 
 def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
@@ -354,11 +423,12 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     feats = (feats / feats.norm(dim=-1, keepdim=True)).cuda()
     w, bb = upt["adapter_H_w"].detach(), upt["adapter_H_b"].detach()
     lab, s = buffers["one_hots_H"], buffers["sample_lens_H"]
-    w16, lab16, s_pad = kernel_operands(w, lab, s)
+    w16, lt16, s_pad = kernel_operands(w, lab, s)
+    lab16 = lab.to(bf16)           # cast once, as at C=600
 
     def two_matmuls():
         phi = torch.matmul(feats.to(bf16), w16.t()).float() + bb
-        return torch.matmul(phi.to(bf16), lab.to(bf16)).float() / s
+        return torch.matmul(phi.to(bf16), lab16).float() / s
 
     rows = b * n_pairs
     record("cache_logits_fwd_c117", "hoigen_tpu_torch/csrc/cache_logits.cu",
@@ -368,8 +438,8 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
            lambda: fused_cache_logits(feats, w, bb, lab, s),
            lambda: cache_logits_reference(feats, w, bb, lab, s, bf16),
            two_matmuls,
-           # the kernel reads W and the padded L as bf16
-           nbytes(feats, w16, bb, lab16, s_pad) + rows * lab.shape[1] * 4,
+           # the kernel reads W and the padded L^T as bf16
+           nbytes(feats, w16, bb, lt16, s_pad) + rows * lab.shape[1] * 4,
            (2 * rows * w.shape[0] * (w.shape[1] + lab.shape[1])
             / BF16_TC_FLOPS,), iters=50)
 

@@ -1,194 +1,440 @@
-// Fused Tip-Adapter cache scoring for Hopper (sm_90a).
+// Tip-Adapter cache scoring for Hopper (sm_90a): two launches of one bf16
+// product kernel, built on TMA and wgmma.
 //
 // Replaces hoigen_tpu/ops/pallas_cache.py::_kernel (the Pallas forward):
 //   out = ((X W^T + b) L) / s
-// X (N, D) f32, W (R, D) bf16, b (R,) f32, L (R, C) bf16 stored with row
-// stride LC (C rounded up to a multiple of 8, the tail columns zero, so
-// that every 16-byte copy of a row of L stays inside it), s (C,) f32;
-// out (N, C) f32: only the first C columns are written. X enters the
-// tensor cores as bf16 (round to nearest even, as the TPU path's
-// astype(bfloat16)); W and L come as bf16, cast (and L padded) once by the
-// wrapper as the TPU path casts them before its kernel. The
-// affinity phi = X W^T + b is accumulated in f32 and rounded to bf16
-// before the second product, as the TPU kernel rounds phi to L's dtype.
+// with the TPU kernel's rounding points: X enters the products as bf16
+// (the wrapper casts it, as the JAX package casts it outside its
+// pallas_call), phi = X W^T is accumulated in f32, + b in f32, and rounded
+// to bf16 (round to nearest even) before the second product, which is
+// accumulated in f32 and divided by s.
 //
-// Bound on this card: at the HICO-DET eval shapes (N = 450 per image,
-// D = 512, R = 1200, C = 600) one image's branch is 2 N R (D + C) = 1.2
-// GFLOP against 1.8 MB of X and out: about 300 FLOP per byte, so the
-// tensor cores bound it. W and L (2.4 MB in bf16) stay in L2.
+// Bound on this card: at the HICO-DET eval shapes (n = 1800 pair rows for
+// a batch of 4, D = 512, R = 1200, C = 600) the function is 2 n R (D + C) =
+// 4.80 GFLOP against about 10.7 MB of operands and output, so the tensor
+// cores bound it (4.86 us at 989 TFLOP/s; the bytes take 3.2 us at 3.35
+// TB/s).
 //
-// Design: one block per (64-row tile of X, 128-column tile of C), 8 warps.
-// X's tile is converted to bf16 into shared memory once. The block walks R
-// in chunks of 64. The chunk of W (64 x D) and of L (64 x 128) are copied
-// into shared memory with 16-byte cp.async, W's next chunk while the
-// current chunk's second product runs and L's chunk while the first
-// product runs. Each warp computes a 16x32 piece of the phi chunk into
-// shared memory (bf16), then multiplies its 16 rows of phi by 64 columns
-// of L (B fragments by ldmatrix.trans from L's row-major chunk) into an f32
-// accumulator held in registers. The (tile, R) affinity never leaves the
-// SM. The price of this choice is that each of the ceil(C/128) column
-// tiles recomputes phi (5x the first product at C = 600); it buys
-// ceil(C/128) times more blocks, which a batch of 4 images (29 row tiles)
-// needs to fill 132 SMs.
+// Design. One kernel, out = epilogue(A B^T) with A (M x K) and B (N x K)
+// both K-major bf16, launched twice per call:
+//   1. phi: A = X (n, D), B = W (R, D); epilogue + b[r] (0 for r >= R),
+//      round to bf16; output the phi scratch (n, RP), RP = R rounded up to
+//      a multiple of 8. Every one of the RP columns is written: W's rows
+//      past R arrive as TMA's zero fill, so columns R..RP-1 are exactly 0
+//      (they meet the zero rows of L^T in launch 2, where garbage could
+//      make NaN * 0).
+//   2. logits: A = phi (n, RP), B = L^T (LC, RP), LC = C rounded up to a
+//      multiple of 8; epilogue / s[c]; output (n, C) f32, only the first C
+//      columns written.
+// phi is computed once per call. The TPU kernel keeps it in VMEM; here it
+// makes a round trip through memory instead (4.32 MB of bf16 at the eval
+// shapes, which stays in the 50 MB L2 between the launches; at most 2.6 us
+// even at HBM rate). Keeping it on chip would need the (64 x 1200) phi
+// tile of a block (150 KB) beside the streamed W and L, and either
+// recomputing phi for every C tile (2.8x the work, the previous design) or
+// splitting R over a cluster with a shared-memory reduction.
+//
+// A block is one warpgroup (128 threads) and computes a 64 x BN tile with
+// wgmma.m64nBNk16 (f32 accumulators in registers, BN = 32, 64 or 128,
+// chosen by the wrapper's _gemm_plan so that the grid gives every SM two
+// blocks where it can).
+// Thread 0 issues TMA loads of 64 x 64 tiles of A and BN x 64 tiles of B
+// (64 bf16 = 128 B, the 128-byte swizzle that wgmma's shared-memory
+// descriptors read directly) into a ring of `stages` stages; each stage
+// has a `full` mbarrier (TMA bytes landed) and an `empty` one (the four
+// warps' products on it are done). TMA zero-fills every read past M, N and
+// K, so any n, R and C work; the epilogue masks its stores. Each output
+// element has one owner and is summed in one fixed order: no atomics, and
+// two calls give the same bits.
+//
+// What holds it back on the card (PERF.md): every block streams its own
+// 64-row tile of A and BN-row tile of B from L2, 2 M N K (1/64 + 1/BN)
+// bytes a launch, and both launches run at the rate of that L2 traffic,
+// well below the tensor cores'. Wider blocks (two consumer warpgroups)
+// and TMA multicast across a cluster would cut it.
+//
+// Shared memory per block: stages x ((64 + BN) x 64 x 2 B + two 8-byte
+// barriers), plus 1024 B to align the ring to the swizzle's 1024-byte
+// atom. The wrapper runs 3 stages: BN = 128, 74,800 B (three blocks per
+// SM, so the 290 blocks of the phi launch at the eval shapes run in one
+// wave, where 4 stages, 99,392 B, fit two a SM and need two waves);
+// BN = 64, 50,224 B (four); BN = 32, 37,936 B (five). The limit is
+// 232,448 B a block.
+//
+// Host side: the four tensor maps are encoded on every call (pure host
+// work) with cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint so that the library needs no -lcuda, and passed
+// as __grid_constant__ parameters. Both launches go on the caller's stream.
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "mma.cuh"
-
-using namespace hoigen;
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBN = 64;    // rows of X per block
-constexpr int kBC = 128;   // columns of C per block
-constexpr int kBR = 64;    // R chunk
-constexpr int kThreads = 256;
-constexpr int kPS = kBR + 8;   // padded stride of sPhi
-constexpr int kLS = kBC + 8;   // padded stride of sL
+typedef __nv_bfloat16 bf16;
 
-__global__ void __launch_bounds__(kThreads)
-cache_logits_fwd(const float* __restrict__ x, const bf16* __restrict__ w,
-                 const float* __restrict__ b, const bf16* __restrict__ l,
-                 const float* __restrict__ s, float* __restrict__ out, int N,
-                 int D, int R, int C, int LC) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int XS = D + 8;
-  bf16* sX = reinterpret_cast<bf16*>(smem);            // kBN x XS
-  bf16* sW = sX + kBN * XS;                            // kBR x XS
-  bf16* sL = sW + kBR * XS;                            // kBR x kLS
-  bf16* sPhi = sL + kBR * kLS;                         // kBN x kPS
+constexpr int kBM = 64;         // rows of A per block: one wgmma M
+constexpr int kBK = 64;         // K per stage: 64 bf16 = one 128-byte row
+constexpr int kThreads = 128;   // one warpgroup
+constexpr int kMaxStages = 4;
+constexpr int kATile = kBM * kBK * 2;
+
+// the ring, 1024 B to align it to the swizzle's atom, and two 8-byte
+// barriers a stage
+constexpr size_t smem_bytes(int bn, int stages) {
+  return 1024 + (size_t)stages * ((kBM + bn) * kBK * 2 + 16);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// a (64 or BN) x 64 box at (column c0, row c1) into shared memory,
+// completing on `bar`; `map` is the address of a __grid_constant__ tensor
+// map parameter
+__device__ __forceinline__ void tma_load(void* dst, uint64_t map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile stored by TMA with the
+// 128-byte swizzle: rows of 128 B, 8-row atoms 1024 B apart (SBO), the
+// leading offset unused by this layout (1), layout type 1 (128B swizzle).
+// A step of 16 along K is +32 B on the start address.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most `n` of the warpgroup's committed groups are pending
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(n) : "memory");
+}
+
+// keep the compiler from moving accumulator accesses across a wait
+template <int n>
+__device__ __forceinline__ void fence_acc(float (&d)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D (64 x BN, f32) += A (64 x 16) B (BN x 16)^T, both K-major in shared
+// memory. Thread t of the warpgroup holds, with w = t / 32 and l = t % 32,
+// d[4j + 2h + e] = D[16w + l/4 + 8h][8j + 2(l%4) + e].
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  __device__ static __forceinline__ void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// out = epilogue(A B^T), one 64 x BN tile a block. kLogits false: out is
+// bf16 (M, N), value bf16(acc + (col < n_vec ? vec[col] : 0)), N a
+// multiple of 8; kLogits true: out is f32 (M, N), value acc / vec[col].
+template <int BN, bool kLogits>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_bf16_tn(const __grid_constant__ CUtensorMap map_a,
+             const __grid_constant__ CUtensorMap map_b,
+             void* __restrict__ out, const float* __restrict__ vec, int M,
+             int N, int K, int n_vec, int stages) {
+  constexpr int kStage = kATile + BN * kBK * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * kStage);
+  uint64_t* empty = full + stages;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * kBN, c0 = blockIdx.y * kBC;
-  const int rg = warp & 3;          // 16-row group of this warp
-  const int half = warp >> 2;       // R half (phase 1) / C half (phase 2)
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  const int k_tiles = (K + kBK - 1) / kBK;
 
-  // W[r0:r0+64, :] and L[r0:r0+64, c0:c0+128]; rows past R and columns
-  // past LC are zero-filled
-  auto stage_w = [&](int r0) {
-    for (int i = tid; i < kBR * (D / 8); i += kThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const bool in = r0 + r < R;
-      cp_async16(sW + r * XS + c, in ? w + (size_t)(r0 + r) * D + c : w, in);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);     // one arrival per warp
     }
-  };
-  auto stage_l = [&](int r0) {
-    for (int i = tid; i < kBR * (kBC / 8); i += kThreads) {
-      const int r = i / (kBC / 8), c = (i % (kBC / 8)) * 8;
-      const bool in = r0 + r < R && c0 + c < LC;
-      cp_async16(sL + r * kLS + c,
-                 in ? l + (size_t)(r0 + r) * LC + c0 + c : l, in);
-    }
-  };
-
-  stage_w(0);
-  cp_async_commit();
-  for (int i = tid; i < kBN * (D / 2); i += kThreads) {
-    int r = i / (D / 2), c = (i % (D / 2)) * 2;
-    float2 val = make_float2(0.f, 0.f);
-    if (n0 + r < N)
-      val = *reinterpret_cast<const float2*>(x + (size_t)(n0 + r) * D + c);
-    *reinterpret_cast<uint32_t*>(sX + r * XS + c) = pack_bf16(val.x, val.y);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // the maps stay in parameter space: only their addresses are taken
+  const uint64_t map_a_addr = reinterpret_cast<uint64_t>(&map_a);
+  const uint64_t map_b_addr = reinterpret_cast<uint64_t>(&map_b);
+  auto load = [=](int kt, int s) {
+    unsigned char* st = smem + s * kStage;
+    mbar_expect_tx(&full[s], kStage);
+    tma_load(st, map_a_addr, &full[s], kt * kBK, m0);
+    tma_load(st + kATile, map_b_addr, &full[s], kt * kBK, n0);
+  };
+  if (tid == 0)
+    for (int kt = 0; kt < k_tiles && kt < stages; ++kt) load(kt, kt);
 
-  for (int r0 = 0; r0 < R; r0 += kBR) {
-    stage_l(r0);          // sL is free: the last chunk's product is done
-    cp_async_commit();
-    cp_async_wait<1>();   // this chunk's W has landed
-    __syncthreads();      // ... for every thread; sX written (first chunk)
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
-    // phase 1: phi[rg*16 .. +16, half*32 .. +32] = X W^T + b
-    float ph[4][4];
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % stages;
+    mbar_wait(&full[s], (kt / stages) & 1);
+    const unsigned char* st = smem + s * kStage;
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ph[j][0] = ph[j][1] = ph[j][2] = ph[j][3] = 0.f;
-    const bf16* xrow = sX + (rg * 16 + g) * XS;
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4] = {ld32(xrow + kk * 16 + 2 * t),
-                       ld32(xrow + 8 * XS + kk * 16 + 2 * t),
-                       ld32(xrow + kk * 16 + 2 * t + 8),
-                       ld32(xrow + 8 * XS + kk * 16 + 2 * t + 8)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* wr = sW + (half * 32 + j * 8 + g) * XS + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(wr), b1 = ld32(wr + 8);
-        mma_bf16(ph[j], a, b0, b1);
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      Wgmma<BN>::mma(acc, sw128_desc(st + kk * 32),
+                     sw128_desc(st + kATile + kk * 32));
+    wgmma_commit();
+    // the previous k-tile's products are done: release its stage, and
+    // refill it with the k-tile `stages` ahead
+    wgmma_wait<1>();
+    if (kt > 0) {
+      const int ps = (kt - 1) % stages;
+      if (lane == 0) mbar_arrive(&empty[ps]);
+      if (tid == 0 && kt - 1 + stages < k_tiles) {
+        mbar_wait(&empty[ps], ((kt - 1) / stages) & 1);
+        load(kt - 1 + stages, ps);
       }
+      __syncwarp();
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int cl = half * 32 + j * 8 + 2 * t;           // column in the chunk
-      float bb0 = r0 + cl < R ? b[r0 + cl] : 0.f;
-      float bb1 = r0 + cl + 1 < R ? b[r0 + cl + 1] : 0.f;
-      bf16* prow = sPhi + (rg * 16 + g) * kPS + cl;
-      *reinterpret_cast<uint32_t*>(prow) =
-          pack_bf16(__fadd_rn(ph[j][0], bb0), __fadd_rn(ph[j][1], bb1));
-      *reinterpret_cast<uint32_t*>(prow + 8 * kPS) =
-          pack_bf16(__fadd_rn(ph[j][2], bb0), __fadd_rn(ph[j][3], bb1));
-    }
-    __syncthreads();      // sW consumed; sPhi written
-
-    if (r0 + kBR < R) stage_w(r0 + kBR);
-    cp_async_commit();    // (an empty group after the last chunk)
-    cp_async_wait<1>();   // this chunk's L has landed
-    __syncthreads();
-
-    // phase 2: acc[rg*16 .. +16, half*64 .. +64] += phi_chunk L_chunk
-    const bf16* prow = sPhi + (rg * 16 + g) * kPS;
-#pragma unroll
-    for (int kk = 0; kk < kBR / 16; ++kk) {
-      uint32_t a[4] = {ld32(prow + kk * 16 + 2 * t),
-                       ld32(prow + 8 * kPS + kk * 16 + 2 * t),
-                       ld32(prow + kk * 16 + 2 * t + 8),
-                       ld32(prow + 8 * kPS + kk * 16 + 2 * t + 8)};
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t bl[4];
-        ldsm_x4_trans(bl, sL + (kk * 16 + (lane & 15)) * kLS + half * 64 +
-                              jp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * jp], a, bl[0], bl[1]);
-        mma_bf16(acc[2 * jp + 1], a, bl[2], bl[3]);
-      }
-    }
-    __syncthreads();      // sPhi / sL consumed before the next chunk
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
 
-  const int row0 = n0 + rg * 16 + g, row1 = row0 + 8;
+  const int row0 = m0 + warp * 16 + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    int c = c0 + half * 64 + j * 8 + 2 * t;
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * (lane & 3);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (c + e >= C) continue;
-      float sc = s[c + e];
-      if (row0 < N) out[(size_t)row0 * C + c + e] = acc[j][e] / sc;
-      if (row1 < N) out[(size_t)row1 * C + c + e] = acc[j][2 + e] / sc;
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (row >= M) continue;
+      if constexpr (kLogits) {
+        float* o = static_cast<float*>(out) + (size_t)row * N;
+        if (col < N) o[col] = v0 / vec[col];
+        if (col + 1 < N) o[col + 1] = v1 / vec[col + 1];
+      } else if (col < N) {        // N is even: col + 1 < N as well
+        const float b0 = col < n_vec ? vec[col] : 0.f;
+        const float b1 = col + 1 < n_vec ? vec[col + 1] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
+                                           (size_t)row * N + col) =
+            __floats2bfloat162_rn(__fadd_rn(v0, b0), __fadd_rn(v1, b1));
+      }
     }
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (rows, cols) row-major bf16 matrix read in boxes of box_rows x 64,
+// 128-byte swizzled, reads out of bounds filled with zeros
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, bool kLogits>
+cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, void* out,
+                   const float* vec, int M, int N, int K, int n_vec,
+                   int stages, cudaStream_t stream) {
+  // once per kernel and process: the largest ring this kernel may get
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_bf16_tn<BN, kLogits>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(BN, kMaxStages)));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((M + kBM - 1) / kBM, (N + BN - 1) / BN);
+  gemm_bf16_tn<BN, kLogits><<<grid, kThreads, smem_bytes(BN, stages),
+                              stream>>>(a, b, out, vec, M, N, K, n_vec,
+                                        stages);
+  return cudaGetLastError();
+}
+
+template <bool kLogits>
+cudaError_t dispatch(int bn, const CUtensorMap& a, const CUtensorMap& b,
+                     void* out, const float* vec, int M, int N, int K,
+                     int n_vec, int stages, cudaStream_t stream) {
+  switch (bn) {
+    case 32:
+      return launch<32, kLogits>(a, b, out, vec, M, N, K, n_vec, stages,
+                                 stream);
+    case 64:
+      return launch<64, kLogits>(a, b, out, vec, M, N, K, n_vec, stages,
+                                 stream);
+    case 128:
+      return launch<128, kLogits>(a, b, out, vec, M, N, K, n_vec, stages,
+                                  stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// x (N, D) bf16, w (R, D) bf16, b (R,) f32, lt (LC, RP) bf16 (L^T, zero
+// padded), s (>= C,) f32, phi (N, RP) bf16 scratch, out (N, C) f32. bn1
+// and bn2 are the block widths of the two launches, stages the depth of
+// their rings (the wrapper's _gemm_plan). Returns a cudaError_t.
 extern "C" int cache_logits_forward(const void* x, const void* w,
-                                    const void* b, const void* l,
-                                    const void* s, void* out, int N, int D,
-                                    int R, int C, int LC, void* stream) {
-  if (D % 16 != 0 || LC % 8 != 0 || LC < C)
+                                    const void* b, const void* lt,
+                                    const void* s, void* phi, void* out,
+                                    int N, int D, int R, int RP, int C,
+                                    int LC, int bn1, int bn2, int stages,
+                                    void* stream) {
+  if (N == 0) return 0;
+  if (D % 8 || RP % 8 || LC % 8 || RP < R || LC < C || stages < 2 ||
+      stages > kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = sizeof(bf16) * ((size_t)(kBN + kBR) * (D + 8) + kBN * kPS +
-                                kBR * kLS);
-  cudaError_t err = cudaFuncSetAttribute(
-      cache_logits_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_x, map_w, map_phi, map_lt;
+  if (!tensor_map(encode, &map_x, x, N, D, kBM) ||
+      !tensor_map(encode, &map_w, w, R, D, bn1) ||
+      !tensor_map(encode, &map_phi, phi, N, RP, kBM) ||
+      !tensor_map(encode, &map_lt, lt, LC, RP, bn2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dispatch<false>(bn1, map_x, map_w, phi, static_cast<const float*>(b),
+                      N, RP, D, R, stages, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + kBN - 1) / kBN, (C + kBC - 1) / kBC);
-  cache_logits_fwd<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(b), static_cast<const bf16*>(l),
-      static_cast<const float*>(s), static_cast<float*>(out), N, D, R, C,
-      LC);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      dispatch<true>(bn2, map_phi, map_lt, out, static_cast<const float*>(s),
+                     N, C, RP, C, stages, st));
 }

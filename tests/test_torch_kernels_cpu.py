@@ -25,7 +25,7 @@ from hoigen_tpu.ops.pallas_cache import \
 from hoigen_tpu_torch.ops.attention import attention_bwd, \
     attention_bwd_reference, attention_reference, fused_attention
 from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
-from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
+from hoigen_tpu_torch.ops.pallas_cache import _gemm_plan, \
     fused_cache_logits, kernel_operands
 
 
@@ -250,31 +250,74 @@ def test_cache_logits_plain_matches_pallas_interpret(dtype):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
-@pytest.mark.parametrize("c", [117, 236])
+@pytest.mark.parametrize("c", [37, 117, 236])
 def test_cache_logits_padded_operands_match_pallas_interpret(c):
-    """K3 at class counts that are not a multiple of 8: the 117-verb HICO
-    configuration and V-COCO's 236 interactions. The kernel's operands
-    (``kernel_operands``: bf16 W, L padded with zero columns and s with
-    ones to a multiple of 8) through the plain version, cut back to C
-    columns, against the Pallas kernel in interpret mode on the unpadded
-    operands, bf16 on both sides; 1e-4 as above."""
+    """K3 at class counts that are not a multiple of 8: a ragged 37 (with
+    R = 150, not a multiple of 8 either), the 117-verb HICO configuration
+    and V-COCO's 236 interactions (R = 2C). The kernel's operands
+    (``kernel_operands``: bf16 W, L^T padded with zeros to (LC, RP), s
+    with ones) through the kernel's two stages in plain PyTorch: phi =
+    bf16(X W^T + b) over RP columns, the rows of W past R being zeros as
+    TMA fills them, then phi times the stored L^T, divided by s, cut back
+    to C columns. Against the Pallas kernel in interpret mode on the
+    unpadded operands, bf16 on both sides, within 1e-4. X and W lie on a
+    2**-7 grid, so that every f32 sum of both products is exact in any
+    order and only the rounding points (phi + b in f32, then bf16) can
+    make the two sides differ: with random f32 inputs another summation
+    order flips a phi rounding now and then, one bf16 ulp."""
     rng = np.random.default_rng(12)
-    n, d, r = 70, 128, 2 * c
-    x = rng.normal(size=(n, d)).astype(np.float32)
-    w = rng.normal(size=(r, d)).astype(np.float32) * 0.1
+    n, d, r = 70, 128, 150 if c == 37 else 2 * c
+    rp, lc = -(-r // 8) * 8, -(-c // 8) * 8
+    x = np.round(np.clip(rng.normal(size=(n, d)) * 0.3, -1, 1) * 128) / 128
+    w = np.round(rng.normal(size=(r, d)) * 0.1 * 128) / 128
     b = -np.ones(r, np.float32)
     l = (rng.random((r, c)) < 0.05).astype(np.float32)
     s = l.sum(0) + 1.0
     want = np.asarray(j_cache_forward(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(l),
         jnp.asarray(s), interpret=True, compute_dtype=jnp.bfloat16))
-    w16, lp, sp = kernel_operands(_t(w), _t(l), _t(s))
-    lc = -(-c // 8) * 8
-    assert lp.shape == (r, lc) and lp.dtype == torch.bfloat16
-    assert sp.shape == (lc,) and not lp[:, c:].any()
-    got = cache_logits_reference(_t(x), w16.float(), _t(b), lp.float(), sp,
-                                 torch.bfloat16)
+    w16, lt, sp = kernel_operands(_t(w), _t(l), _t(s))
+    assert w16.shape == (r, d) and w16.dtype == torch.bfloat16
+    assert lt.shape == (lc, rp) and lt.dtype == torch.bfloat16
+    assert not lt[c:].any() and not lt[:, r:].any()
+    assert torch.equal(lt[:c, :r], _t(l).t().to(torch.bfloat16))
+    assert sp.shape == (lc,) and bool((sp[c:] == 1).all())
+    bf = torch.bfloat16
+    w_rows = torch.zeros(rp, d)
+    w_rows[:r] = w16.float()
+    b_pad = torch.zeros(rp)
+    b_pad[:r] = _t(b)
+    phi = (torch.matmul(_t(x).to(bf).float(), w_rows.t()) + b_pad).to(bf)
+    assert not phi[:, r:].any()
+    got = torch.matmul(phi.float(), lt.float().t()) / sp
     np.testing.assert_allclose(got[:, :c].numpy(), want, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,d,r,c", [(1800, 512, 1200, 600),
+                                     (1800, 512, 234, 117),
+                                     (1800, 512, 472, 236),
+                                     (70, 128, 150, 37),
+                                     (1800, 1024, 1200, 600)],
+                         ids=["eval-c600", "train-c117", "vcoco-c236",
+                              "ragged", "d1024"])
+def test_gemm_plan_covers_the_output_and_fits(n, d, r, c):
+    """The tiles of K3's two launches (``_gemm_plan``): phi (n, RP) from
+    X (n, D) and W, then the logits (n, C) from phi and L^T (K = RP). The
+    grid covers the output with no empty tile, the block width suits
+    wgmma (a multiple of 8, at most 256), the K box is one 128-byte
+    swizzled row, the ring's shared memory fits a block's 232,448 bytes,
+    and at the eval shape each launch has at least 100 blocks for the
+    H100's 132 SMs."""
+    rp = -(-r // 8) * 8
+    for m, cols, k in ((n, rp, d), (n, c, rp)):
+        bm, bn, bk, stages, smem, grid = _gemm_plan(m, cols, k)
+        assert grid[0] * bm >= m and (grid[0] - 1) * bm < m
+        assert grid[1] * bn >= cols and (grid[1] - 1) * bn < cols
+        assert bn % 8 == 0 and 8 <= bn <= 256 and bm == 64
+        assert bk * 2 == 128 and 3 <= stages <= 4
+        assert stages * (bm + bn) * bk * 2 < smem <= 232448
+        if (n, c) == (1800, 600):
+            assert grid[0] * grid[1] >= 100
 
 
 def test_cache_logits_function_grads_match_jax():
