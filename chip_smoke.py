@@ -342,6 +342,96 @@ def check_cache_kernel(x, w, b, lab, s, check):
                     f"{phi.shape[1] - 1} exactly zero ok")
 
 
+def same_bits(name, got, want):
+    """Fails unless each tensor of got equals its counterpart bit for
+    bit."""
+    import torch
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            fail(f"{name}[{i}]: differs by "
+                 f"{(g.float() - w.float()).abs().max().item():.3e}")
+    log(f"kernel {name}: bit-identical ok")
+
+
+def check_attention_layouts(q, k, v, dout, check):
+    """Phase 3, K1 and K4 at the CLIP training shape beyond their timed
+    checks: on strided (B, H, L, D) views of (B, L, H, D) buffers against
+    the same kernels on contiguous copies, bit for bit (the kernels read
+    both through strides); the outputs in the views' layout; two K4 calls
+    bit for bit; K4 on the forward's saved statistics against the plain
+    backward on the same statistics."""
+    import torch
+
+    from hoigen_tpu_torch.ops.attention import attention_bwd, \
+        attention_bwd_reference, attention_forward
+
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        views = (q, k, v, dout)
+        contig = tuple(t.contiguous() for t in views)
+        out_v, st_v = attention_forward(*views[:3], return_stats=True)
+        out_c, st_c = attention_forward(*contig[:3], return_stats=True)
+        if out_v.stride() != q.stride():
+            fail(f"attention_fwd: output strides {out_v.stride()}, input "
+                 f"view's {q.stride()}")
+        same_bits("attention_fwd_clip_f32 strided vs contiguous",
+                  (out_v, st_v), (out_c, st_c))
+        got = attention_bwd(*views[:3], None, out_v, views[3], stats=st_v)
+        want = attention_bwd(*contig[:3], None, out_c, contig[3], stats=st_c)
+        for g, like in zip(got[:3], views):
+            if g.stride() != like.stride():
+                fail(f"attention_bwd: gradient strides {g.stride()}, input "
+                     f"view's {like.stride()}")
+        same_bits("attention_bwd strided vs contiguous", got[:3], want[:3])
+        again = attention_bwd(*views[:3], None, out_v, views[3], stats=st_v)
+        same_bits("attention_bwd two calls", got[:3], again[:3])
+        check("attention_bwd_saved_stats", got[:3], attention_bwd_reference(
+            *views[:3], None, out_v, views[3], compute_dtype=bf16,
+            stats=st_v)[:3])
+
+
+def check_clip_block_layout(params, cfg, b):
+    """Phase 3: one CLIP block's self-attention (``_mhsa_fused``), forward
+    and backward, at the training shape under torch.profiler: no
+    aten::copy_, aten::clone or aten::contiguous may take a tensor of B * L
+    * E elements (the kernels read and write the projections' layout)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hoigen_tpu_torch.models.clip.model import _mhsa_fused
+
+    heads = cfg.clip.vision_heads
+    length = cfg.clip.grid_size ** 2 + 1
+    width = cfg.clip.vision_width
+    attn = {n: t.detach().clone().requires_grad_() for n, t in
+            params["upt"]["clip"]["visual"]["blocks"][0]["attn"].items()}
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((b, length, width), generator=gen).cuda() \
+        .requires_grad_()
+    g = torch.randn((b, length, width), generator=gen).cuda()
+
+    def block():
+        _mhsa_fused(attn, x, heads).backward(g)
+
+    block()                                       # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        block()
+        torch.cuda.synchronize()
+    n = b * length * width
+    copies = [ev for ev in prof.events()
+              if ev.name in ("aten::copy_", "aten::clone", "aten::contiguous")]
+    big = [(ev.name, ev.input_shapes) for ev in copies
+           if any(s and math.prod(s) == n for s in ev.input_shapes)]
+    if big:
+        fail(f"CLIP block layout: {len(big)} copies of ({b}, {length}, "
+             f"{width})-sized tensors around the attention: {big[:4]}")
+    log(f"CLIP block layout: _mhsa_fused forward and backward at ({b}, "
+        f"{length}, {width}) make no copy of a {n}-element tensor ok "
+        f"({len(copies)} smaller copy ops)")
+
+
 def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     """Phase 3, the training step's kernels: K1 and K4 at the CLIP tower's
     shapes, (B, 12, 197, 64) f32 (K4 through the autograd.Function, so
@@ -350,7 +440,8 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     import torch.nn.functional as F
 
     from hoigen_tpu_torch.ops.attention import attention_bwd, \
-        attention_bwd_reference, attention_reference, fused_attention
+        attention_bwd_reference, attention_forward, attention_reference, \
+        fused_attention
     from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
         fused_cache_logits, kernel_operands
 
@@ -360,14 +451,16 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     heads = cfg.clip.vision_heads
     length = cfg.clip.grid_size ** 2 + 1
     hd = cfg.clip.vision_width // heads
-    shape = (b, heads, length, hd)
-    q, k, v, dout = (torch.randn(shape, generator=gen).cuda()
-                     for _ in range(4))
+    # the call site's layout: (B, H, L, D) views of (B, L, H, D) buffers,
+    # as models/clip/model.py::_mhsa_fused passes its projections
+    q, k, v, dout = (torch.randn((b, length, heads, hd), generator=gen)
+                     .cuda().transpose(1, 2) for _ in range(4))
     n_scores = b * heads * length * length
     t_exp = n_scores / (EXP_PER_SM_PER_CLOCK * n_sm * clock_hz)
     t_mm = 2 * n_scores * hd / BF16_TC_FLOPS       # one of the products
-    q16, k16, v16 = (t.to(bf16) for t in (q, k, v))
-    out = fused_attention(q, k, v)
+    # the SDPA yardsticks on contiguous bf16 copies, as in earlier runs
+    q16, k16, v16 = (t.contiguous().to(bf16) for t in (q, k, v))
+    out, stats = attention_forward(q, k, v, return_stats=True)
     record("attention_fwd_clip_f32", "hoigen_tpu_torch/csrc/attention.cu",
            "hoigen_tpu/ops/attention.py:48", out,
            attention_reference(q, k, v, compute_dtype=bf16),
@@ -375,6 +468,7 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
            lambda: attention_reference(q, k, v, compute_dtype=bf16),
            lambda: F.scaled_dot_product_attention(q16, k16, v16),
            nbytes(q, k, v, out), (2 * t_mm, t_exp), iters=50)
+    check_attention_layouts(q, k, v, dout, check)
 
     # K4 through the autograd.Function, with a nonzero key bias, against
     # the plain backward (bf16 products) from the plain forward
@@ -394,6 +488,9 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     kc, vc = (torch.randn((2, 3, 150, 32), generator=gen).cuda().to(bf16)
               for _ in range(2))
     bc = (0.5 * torch.randn((2, 150), generator=gen)).cuda()
+    with torch.no_grad():
+        check("attention_fwd_bf16_cross", fused_attention(qc, kc, vc, bc),
+              attention_reference(qc, kc, vc, bc))
     ins = [t.clone().requires_grad_() for t in (qc, kc, vc, bc)]
     got = torch.autograd.grad(fused_attention(*ins), ins, gc)
     check("attention_bwd_bf16_cross", got, attention_bwd_reference(
@@ -406,15 +503,16 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
         dout, compute_dtype=bf16)[:3]
     q16g, k16g, v16g = (t.clone().requires_grad_() for t in (q16, k16, v16))
     o16 = F.scaled_dot_product_attention(q16g, k16g, v16g)
-    do16 = dout.to(bf16)
+    do16 = dout.contiguous().to(bf16)
     record("attention_bwd", "hoigen_tpu_torch/csrc/attention.cu",
            "hoigen_tpu/ops/attention.py:95", got, want,
-           lambda: attention_bwd(q, k, v, None, out, dout),
+           lambda: attention_bwd(q, k, v, None, out, dout, stats=stats),
            lambda: attention_bwd_reference(q, k, v, None, out, dout,
                                            compute_dtype=bf16),
            lambda: torch.autograd.grad(o16, (q16g, k16g, v16g), do16,
                                        retain_graph=True),
            nbytes(q, k, v, out, dout, q, k, v), (5 * t_mm, t_exp), iters=50)
+    check_clip_block_layout(params, cfg, b)
 
     # K3: the H cache branch of the training step, 117 classes
     upt = params["upt"]

@@ -2,54 +2,72 @@
 //
 // attention_forward replaces hoigen_tpu/ops/attention.py::_attn_kernel:
 //   out = softmax(q k^T * scale + key_bias) v
-// attention_backward replaces hoigen_tpu/ops/attention.py::_attn_bwd_kernel:
-//   dq, dk, dv and d(key_bias) by recompute, with no logsumexp saved.
-// q (B, H, Lq, D), k/v (B, H, Lk, D), out (B, H, Lq, D), all of one dtype T,
-// bf16 (the DETR encoder) or f32 (the CLIP tower in training); key_bias
-// (B, Lk) f32 or null. Every product takes bf16 operands with f32
-// accumulation, as the TPU's Precision.DEFAULT does for both dtypes: an f32
-// operand is rounded to bf16 when it is staged into shared memory. Scores,
-// row max and sum, delta and ds stay in f32.
+// and, when asked, saves each query row's max and 1/sum as (2, B, H, Lq)
+// f32. attention_backward replaces ::_attn_bwd_kernel: dq, dk, dv and
+// d(key_bias), from those saved statistics.
 //
-// Bound on this card, forward: at the DETR encoder shapes (H=8, L=1050,
-// D=32) one image does 4*H*L*L*D = 1.13 GFLOP (1.1 us on the tensor cores
-// at 989 TFLOP/s) against H*L*L = 8.8 M exponentials (2.1 us at 16 per SM
-// per clock, 132 SMs, 1.98 GHz) and 2.2 MB of q, k, v and out (0.6 us at
-// 3.35 TB/s): the special-function units bound it. Backward: at the CLIP
-// shapes (H=12, L=197, D=64, f32) one image reads q, k, v, out and dout
-// and writes dq, dk and dv, 8 x 0.6 MB = 4.8 MB (1.45 us), against 5
-// products of 2*H*L*L*D = 0.3 GFLOP each, 1.5 GFLOP (1.5 us): bytes and
-// operations are close, bytes a little ahead.
+// Operands. q, out (B, H, Lq, D), k, v (B, H, Lk, D), dout like out, all of
+// one dtype T: bf16 (the DETR encoder) or f32 (the CLIP tower in training).
+// Each is read or written through its own B, H and L strides (elements; D
+// has stride 1 and every row start is 16-byte aligned, which the wrapper
+// checks), so the CLIP tower's transposed views of (B, L, H, D)
+// projections are read in place and out, dq, dk and dv are written in the
+// caller's (B, L, H, D) layout: no layout copy around a call. key_bias
+// (B, Lk) f32 or null. Every product takes bf16 operands (round to nearest
+// even) with f32 accumulation, as the TPU's Precision.DEFAULT does for both
+// dtypes. An f32 operand lands in shared memory as f32 and is rounded where
+// its mma fragment is built from shared memory. Scores, row max and sum,
+// delta and ds stay in f32; p is rounded to bf16 before P V and before
+// p^T dout, and ds * scale before ds k and ds^T q, as in the TPU kernels.
 //
-// Forward design: flash-style, one block per (64-query tile, head, batch),
-// 4 warps of 16 query rows each. The block loops over 64-key tiles held in
-// shared memory (V stored transposed so that its B fragments are 4-byte
-// loads) and keeps an online softmax in registers: the (Lq, Lk) scores
-// never leave the SM. The score accumulator is reused as the A fragment of
-// P V, so P is rounded to bf16 once, as the TPU kernel rounds p before its
-// PV product. Unlike the TPU kernel, p is normalised after the PV product
-// (online softmax); keys past Lk get a -inf bias instead of the TPU's -1e9
-// padding.
+// Bound on this card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16, 132 SMs) at
+// the CLIP tower's training shape (B=4, H=12, L=197, D=64, f32): the
+// forward moves q, k, v and out, 9.7 MB (2.89 us), against two products of
+// 0.24 GFLOP (0.48 us) and 1.86 M exponentials (0.45 us); the backward
+// moves q, k, v, out, dout, dq, dk and dv, 19.4 MB (5.78 us), against five
+// products (1.2 us). Both are bound by bytes, so the design is about the
+// memory path: every tile streams into shared memory by cp.async 16-byte
+// copies into a ring of stages, the next tiles in flight while the
+// current one's products run, and no warp waits on a global load inside a
+// loop. The products stay on mma.sync m16n8k16: at this size wgmma's
+// 64-row tiles would buy nothing the bytes do not already bound.
 //
-// Backward design. The TPU kernel walks the query blocks in order and
-// carries dk, dv and d(bias) in VMEM from one grid step to the next; blocks
-// on this card run in parallel and in no order, so no block may carry a
-// sum to another. The work is split instead into three launches on one
-// stream, each of which owns what it writes:
-//  1. attn_bwd_dq, one block per (64-query tile, head, batch): a first
-//     sweep over the keys recomputes the row max and sum (no logsumexp was
-//     saved, as on the TPU), delta = rowsum(dout * out) is taken in f32
-//     from the unrounded inputs, and a second sweep forms the normalised
-//     p, dp = dout v^T, ds = p (dp - delta) and accumulates dq = ds k in
-//     registers. It writes dq and the row statistics (max, 1/sum, delta).
-//  2. attn_bwd_dkdv, one block per (64-key tile, head, batch): it loops over
-//     32-query tiles, rebuilds p^T and dp^T from the statistics of launch
-//     1, and accumulates dv = p^T dout and dk = ds^T q for its keys in
-//     registers, and the per-head partial sums of ds over the queries.
-//  3. attn_bwd_dbias sums those partials over the heads.
-// No atomics: every sum has one owner and a fixed order, so the gradients
-// are the same from run to run. p is rounded to bf16 before p^T dout, and
-// ds * scale before ds k and ds^T q, as in _attn_bwd_kernel.
+// Forward (attn_fwd): one block per (BQ-query tile, head, batch), BQ = 16
+// rows a warp, 2 or 4 warps; the wrapper's _attn_plan picks BQ and the
+// ring depth. The block streams 64-key tiles of K and V (and the bias)
+// through a ring of 2 or 3 stages. Rows are padded in shared memory so
+// that the fragment loads are free of bank conflicts: f32 K rows are read
+// as float2 pairs along D (row stride D + 8 floats), f32 V rows as single
+// floats down the keys (row stride D + 4); bf16 rows (stride D + 8) are
+// read by 4-byte loads and ldmatrix.trans. An online softmax is kept in
+// registers and p is normalised after the P V product, so the (Lq, Lk)
+// scores never leave the SM. Shared memory at the CLIP shape (f32, BQ 64,
+// 2 stages): 18,432 B of q + 2 x 36,096 B of ring = 90,624 B, two blocks
+// an SM.
+//
+// Why the statistics are saved. The TPU kernel saves no logsumexp and its
+// backward recomputes the row max and sum, one extra reduction against an
+// extra HBM-resident stat. On this card that recompute is a whole extra
+// sweep over K in every dq block, while the two statistics are 76 KB at
+// the CLIP shape (0.02 us of bytes), so the forward writes them.
+//
+// Backward: two launches on one stream (three with a key-bias gradient),
+// each the only writer of what it writes:
+//  1. attn_bwd_dq, one block per (64-query tile, head, batch): delta =
+//     rowsum(dout * out) in f32 from the inputs as given (written to a
+//     scratch for launch 2), then one sweep over 64-key tiles of K and V
+//     streamed through a 2-stage ring: p = exp(s - max) / sum from the
+//     saved statistics, dp = dout v^T, ds = p (dp - delta), dq += ds k.
+//  2. attn_bwd_dkdv, one block per (64-key tile, head, batch): k and v
+//     once, then 32-query tiles of q and dout with their max, 1/sum and
+//     delta through a 3-stage ring: dv += p^T dout, dk += ds^T q, and the
+//     per-head partial sums of ds for the bias gradient.
+//  3. attn_bwd_dbias sums those partials over the heads (only when the
+//     bias gradient is asked for).
+// The TPU kernel carries dk, dv and d(bias) from one sequential grid step
+// to the next; blocks here run in parallel and in no order, so each sum
+// has one owner and a fixed order instead: no atomics, and two calls give
+// the same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -59,21 +77,26 @@ using namespace hoigen;
 
 namespace {
 
-constexpr int kThreads = 128;   // 4 warps of 16 rows
-constexpr int kBQ = 64;         // query rows per forward / dq block
-constexpr int kBK = 64;         // keys per tile (and per dk/dv block)
-constexpr int kBQ2 = 32;        // query rows per tile of the dk/dv loop
+constexpr int kBK = 64;           // keys per tile; keys per dk/dv block
+constexpr int kBQ2 = 32;          // queries per tile of the dk/dv loop
+constexpr int kBwdThreads = 128;  // 4 warps of 16 rows (dq) or keys (dk/dv)
+constexpr int kDqStages = 2;
+constexpr int kDkdvStages = 3;
 
-// Loads and stores of the input dtype. load8 reads 8 consecutive values
-// and returns them as 8 bf16 (round to nearest even for f32).
+// Shared-memory row strides, in elements: R for rows read as pairs along D
+// (and by ldmatrix for bf16), V for the forward's f32 V rows, read down
+// the keys
+template <typename T, int D>
+struct Pad {
+  static constexpr int R = D + 8;
+  static constexpr int V = sizeof(T) == 4 ? D + 4 : D + 8;
+};
+
 template <typename T>
 struct Io;
 
 template <>
 struct Io<bf16> {
-  static __device__ __forceinline__ uint4 load8(const bf16* p) {
-    return *reinterpret_cast<const uint4*>(p);
-  }
   static __device__ __forceinline__ float2 load2(const bf16* p) {
     return unpack_bf16(ld32(p));
   }
@@ -84,12 +107,6 @@ struct Io<bf16> {
 
 template <>
 struct Io<float> {
-  static __device__ __forceinline__ uint4 load8(const float* p) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    const float4 b = *reinterpret_cast<const float4*>(p + 4);
-    return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                      pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-  }
   static __device__ __forceinline__ float2 load2(const float* p) {
     return *reinterpret_cast<const float2*>(p);
   }
@@ -98,63 +115,94 @@ struct Io<float> {
   }
 };
 
-// rows [r0, r0 + rows) of a (L, D) matrix into shared memory as bf16 with
-// row stride S; rows past L are zero
-template <typename T, int D, int S>
-__device__ __forceinline__ void stage_rows(bf16* dst, const T* src, int r0,
-                                           int rows, int L, int tid) {
-  constexpr int ROWV = D / 8;
-  for (int i = tid; i < rows * ROWV; i += kThreads) {
-    const int r = i / ROWV, c = (i % ROWV) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < L) val = Io<T>::load8(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * S + c) = val;
+// two consecutive values of a shared-memory row as one register of two
+// bf16 (an f32 pair is rounded here)
+__device__ __forceinline__ uint32_t pair(const bf16* p) { return ld32(p); }
+
+__device__ __forceinline__ uint32_t pair(const float* p) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  return pack_bf16(x.x, x.y);
+}
+
+// rows [r0, r0 + rows) of a matrix with row stride ld (elements) into
+// shared memory with row stride S, by 16-byte cp.async; rows at or past L
+// are zero-filled
+template <typename T, int D, int S, int NT>
+__device__ __forceinline__ void stage_async(T* dst, const T* src,
+                                            long long ld, int r0, int rows,
+                                            int L, int tid) {
+  constexpr int PER = 16 / sizeof(T), CH = D / PER;
+  for (int i = tid; i < rows * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * PER;
+    const bool in = r0 + r < L;
+    cp_async16(dst + r * S + c, in ? src + (r0 + r) * ld + c : src, in);
+  }
+}
+
+// src[i0 .. i0 + n) into shared memory by 4-byte cp.async, zero at or past
+// index `valid`
+template <int NT>
+__device__ __forceinline__ void stage_vec_async(float* dst, const float* src,
+                                                int i0, int n, int valid,
+                                                int tid) {
+  for (int i = tid; i < n; i += NT) {
+    const bool in = i0 + i < valid;
+    cp_async4(dst + i, in ? src + i0 + i : src, in);
   }
 }
 
 // A fragments of a warp's 16 rows (row stride S) over the whole depth D
-template <int D, int S>
+template <int D, int S, typename T>
 __device__ __forceinline__ void load_afrag(uint32_t a[D / 16][4],
-                                           const bf16* rows, int g, int t) {
+                                           const T* rows, int g, int t) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    a[kk][0] = ld32(rows + g * S + kk * 16 + 2 * t);
-    a[kk][1] = ld32(rows + (g + 8) * S + kk * 16 + 2 * t);
-    a[kk][2] = ld32(rows + g * S + kk * 16 + 2 * t + 8);
-    a[kk][3] = ld32(rows + (g + 8) * S + kk * 16 + 2 * t + 8);
+    a[kk][0] = pair(rows + g * S + kk * 16 + 2 * t);
+    a[kk][1] = pair(rows + (g + 8) * S + kk * 16 + 2 * t);
+    a[kk][2] = pair(rows + g * S + kk * 16 + 2 * t + 8);
+    a[kk][3] = pair(rows + (g + 8) * S + kk * 16 + 2 * t + 8);
   }
 }
 
 // c[j] (n-tile j of N columns) = A (16 x D, fragments a) times B^T, where B
 // is stored (n, d) row-major in shared memory with row stride S
-template <int D, int N, int S>
+template <int D, int N, int S, typename T>
 __device__ __forceinline__ void mma_abt(float c[N / 8][4],
-                                        uint32_t a[D / 16][4],
-                                        const bf16* b, int g, int t) {
+                                        uint32_t a[D / 16][4], const T* b,
+                                        int g, int t) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-    const bf16* row = b + (j * 8 + g) * S;
+    const T* row = b + (j * 8 + g) * S;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_bf16(c[j], a[kk], ld32(row + kk * 16 + 2 * t),
-               ld32(row + kk * 16 + 2 * t + 8));
+      mma_bf16(c[j], a[kk], pair(row + kk * 16 + 2 * t),
+               pair(row + kk * 16 + 2 * t + 8));
   }
 }
 
-// acc (16 x D) += P (16 x K, the f32 accumulator fragments p, rounded to
-// bf16 here) times B, where B is stored (k, d) row-major in shared memory
-// with row stride S
+// the A fragment of k-step kk of P (16 x K, the f32 accumulator fragments
+// p), rounded to bf16
+template <int K>
+__device__ __forceinline__ void p_frag(uint32_t pa[4], float p[K / 8][4],
+                                       int kk) {
+  pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+  pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+  pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+  pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+}
+
+// acc (16 x D) += P (16 x K, accumulator fragments) times B, where B is
+// stored (k, d) row-major in shared memory with row stride S: bf16 rows by
+// ldmatrix.trans
 template <int K, int D, int S>
 __device__ __forceinline__ void mma_pb(float acc[D / 8][4],
-                                       float p[K / 8][4],
-                                       const bf16* b, int lane) {
+                                       float p[K / 8][4], const bf16* b,
+                                       int lane) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    uint32_t pa[4];
+    p_frag<K>(pa, p, kk);
 #pragma unroll
     for (int jp = 0; jp < D / 16; ++jp) {
       uint32_t bl[4];
@@ -166,34 +214,42 @@ __device__ __forceinline__ void mma_pb(float acc[D / 8][4],
   }
 }
 
-// keys [k0, k0 + kBK) of one head into shared memory (v too when given)
-// with their bias; keys past Lk get a -inf bias
-template <typename T, int D, int S>
-__device__ __forceinline__ void stage_keys(bf16* sK, bf16* sV, float* sBias,
-                                           const T* k, const T* v,
-                                           const float* bias, int k0, int Lk,
-                                           int tid) {
-  stage_rows<T, D, S>(sK, k, k0, kBK, Lk, tid);
-  if (v) stage_rows<T, D, S>(sV, v, k0, kBK, Lk, tid);
-  for (int i = tid; i < kBK; i += kThreads)
-    sBias[i] = k0 + i < Lk ? (bias ? bias[k0 + i] : 0.f) : -INFINITY;
+// ... and f32 rows, read one value a key and rounded to bf16 in pairs
+template <int K, int D, int S>
+__device__ __forceinline__ void mma_pb(float acc[D / 8][4],
+                                       float p[K / 8][4], const float* b,
+                                       int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    uint32_t pa[4];
+    p_frag<K>(pa, p, kk);
+    const float* rows = b + (kk * 16 + 2 * t) * S + g;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float* c = rows + j * 8;
+      mma_bf16(acc[j], pa, pack_bf16(c[0], c[S]),
+               pack_bf16(c[8 * S], c[9 * S]));
+    }
+  }
 }
 
-// s (16 x kBK) = q k^T * scale + bias for the staged key tile
-template <int D, int S>
-__device__ __forceinline__ void biased_scores(float s[kBK / 8][4],
-                                              uint32_t qa[D / 16][4],
-                                              const bf16* sK,
-                                              const float* sBias, float scale,
-                                              int g, int t) {
-  mma_abt<D, kBK, S>(s, qa, sK, g, t);
+// s = s * scale + bias for the tile of keys from k0 (sBias null: no bias);
+// keys at or past Lk get -inf
+template <int N>
+__device__ __forceinline__ void bias_scores(float s[N / 8][4],
+                                            const float* sBias, int k0,
+                                            int Lk, float scale, int t) {
 #pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) {
-    const float b0 = sBias[j * 8 + 2 * t], b1 = sBias[j * 8 + 2 * t + 1];
-    s[j][0] = __fadd_rn(__fmul_rn(s[j][0], scale), b0);
-    s[j][1] = __fadd_rn(__fmul_rn(s[j][1], scale), b1);
-    s[j][2] = __fadd_rn(__fmul_rn(s[j][2], scale), b0);
-    s[j][3] = __fadd_rn(__fmul_rn(s[j][3], scale), b1);
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = j * 8 + 2 * t + e;
+      const float b =
+          k0 + col < Lk ? (sBias ? sBias[col] : 0.f) : -INFINITY;
+      s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), b);
+      s[j][e + 2] = __fadd_rn(__fmul_rn(s[j][e + 2], scale), b);
+    }
   }
 }
 
@@ -208,31 +264,68 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // ------------------------------------------------------------- forward
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
-         const T* __restrict__ v, const float* __restrict__ bias,
-         T* __restrict__ out, int H, int Lq, int Lk, float scale) {
-  constexpr int QS = D + 8;      // padded row strides: conflict-free frags
-  constexpr int VS = kBK + 8;
-  __shared__ __align__(16) bf16 sQ[kBQ * QS];
-  __shared__ __align__(16) bf16 sK[kBK * QS];
-  __shared__ __align__(16) bf16 sVt[D * VS];
-  __shared__ float sBias[kBK];
+struct FwdArgs {
+  const void *q, *k, *v;
+  const float* bias;       // (B, Lk) or null
+  void* out;
+  float* stats;            // (2, B, H, Lq): row max, 1/sum; or null
+  long long sq[3], sk[3], sv[3], so[3];   // B, H, L strides (elements)
+  int H, Lq, Lk;
+  float scale;
+};
+
+template <typename T, int D, int NW, int STAGES>
+struct FwdSmem {
+  static constexpr int SK = Pad<T, D>::R, SV = Pad<T, D>::V, BQ = NW * 16;
+  static constexpr int Q = BQ * SK * sizeof(T);
+  static constexpr int K = kBK * SK * sizeof(T);
+  static constexpr int V = kBK * SV * sizeof(T);
+  static constexpr int STAGE = K + V + kBK * 4;
+  static constexpr int BYTES = Q + STAGES * STAGE;
+};
+
+template <typename T, int D, int NW, int STAGES>
+__global__ void __launch_bounds__(NW * 32) attn_fwd(FwdArgs a) {
+  using L = FwdSmem<T, D, NW, STAGES>;
+  constexpr int NT = NW * 32, SK = L::SK, SV = L::SV;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  unsigned char* ring = smem + L::Q;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const T* kb = k + bh * Lk * D;
-  const T* vb = v + bh * Lk * D;
-  const float* biasb = bias ? bias + (size_t)blockIdx.z * Lk : nullptr;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * L::BQ;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.Lk : nullptr;
+  const int n_tiles = (a.Lk + kBK - 1) / kBK;
 
-  stage_rows<T, D, QS>(sQ, q + bh * Lq * D, q0, kBQ, Lq, tid);
-  __syncthreads();
+  auto tile_k = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * L::STAGE);
+  };
+  auto tile_v = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * L::STAGE + L::K);
+  };
+  auto tile_b = [&](int s) {
+    return reinterpret_cast<float*>(ring + s * L::STAGE + L::K + L::V);
+  };
+  auto issue = [&](int tile) {
+    const int s = tile % STAGES, k0 = tile * kBK;
+    stage_async<T, D, SK, NT>(tile_k(s), kb, a.sk[2], k0, kBK, a.Lk, tid);
+    stage_async<T, D, SV, NT>(tile_v(s), vb, a.sv[2], k0, kBK, a.Lk, tid);
+    if (biasb) stage_vec_async<NT>(tile_b(s), biasb, k0, kBK, a.Lk, tid);
+  };
+
+  // group 0: the q tile and key tile 0; then one group a key tile
+  stage_async<T, D, SK, NT>(sQ, qb, a.sq[2], q0, L::BQ, a.Lq, tid);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) issue(s);
+    cp_async_commit();
+  }
+
   uint32_t qa[D / 16][4];
-  load_afrag<D, QS>(qa, sQ + warp * 16 * QS, g, t);
-
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};                     // this thread's partial sums
   float o[D / 8][4];
@@ -240,34 +333,30 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < D / 8; ++j)
     o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
-  constexpr int ROWV = D / 8;
-  for (int k0 = 0; k0 < Lk; k0 += kBK) {
-    __syncthreads();                           // previous tile consumed
-    stage_keys<T, D, QS>(sK, nullptr, sBias, kb, nullptr, biasb, k0, Lk,
-                         tid);
-    for (int i = tid; i < kBK * ROWV; i += kThreads) {
-      const int r = i / ROWV, c = (i % ROWV) * 8;
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < Lk) vv = Io<T>::load8(vb + (size_t)(k0 + r) * D + c);
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sVt[(c + e) * VS + r] = ve[e];
-    }
-    __syncthreads();
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<STAGES - 2>();               // tile `it` has landed
+    __syncthreads();                           // ... for every thread, and
+                                               // tile it - 1 is consumed
+    if (it + STAGES - 1 < n_tiles) issue(it + STAGES - 1);
+    cp_async_commit();
+    if (it == 0) load_afrag<D, SK>(qa, sQ + warp * 16 * SK, g, t);
+    const int s = it % STAGES;
 
-    float s[kBK / 8][4];
-    biased_scores<D, QS>(s, qa, sK, sBias, scale, g, t);
+    float sc[kBK / 8][4];
+    mma_abt<D, kBK, SK>(sc, qa, tile_k(s), g, t);
+    bias_scores<kBK>(sc, biasb ? tile_b(s) : nullptr, it * kBK, a.Lk,
+                     a.scale, t);
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
     }
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mn = fmaxf(m[r], quad_max(mx[r]));
+      const float mn = fmaxf(m[r], quad_max(mx[r]));
       alpha[r] = m[r] == -INFINITY ? 0.f : __expf(m[r] - mn);
       m[r] = mn;
       l[r] *= alpha[r];
@@ -279,207 +368,248 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = __expf(s[j][0] - m[0]);
-      s[j][1] = __expf(s[j][1] - m[0]);
-      s[j][2] = __expf(s[j][2] - m[1]);
-      s[j][3] = __expf(s[j][3] - m[1]);
-      l[0] += s[j][0] + s[j][1];
-      l[1] += s[j][2] + s[j][3];
+      sc[j][0] = __expf(sc[j][0] - m[0]);
+      sc[j][1] = __expf(sc[j][1] - m[0]);
+      sc[j][2] = __expf(sc[j][2] - m[1]);
+      sc[j][3] = __expf(sc[j][3] - m[1]);
+      l[0] += sc[j][0] + sc[j][1];
+      l[1] += sc[j][2] + sc[j][3];
     }
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const bf16* vrow = sVt + (j * 8 + g) * VS + kk * 16 + 2 * t;
-        mma_bf16(o[j], pa, ld32(vrow), ld32(vrow + 8));
-      }
-    }
+    mma_pb<kBK, D, SV>(o, sc, tile_v(s), lane);
   }
 
   const float inv0 = 1.f / quad_sum(l[0]), inv1 = 1.f / quad_sum(l[1]);
+  T* ob = static_cast<T*>(a.out) + b * a.so[0] + h * a.so[1];
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
-    if (r0 < Lq)
-      Io<T>::store2(out + (bh * Lq + r0) * D + c, o[j][0] * inv0,
-                    o[j][1] * inv0);
-    if (r1 < Lq)
-      Io<T>::store2(out + (bh * Lq + r1) * D + c, o[j][2] * inv1,
-                    o[j][3] * inv1);
+    if (r0 < a.Lq)
+      Io<T>::store2(ob + r0 * a.so[2] + c, o[j][0] * inv0, o[j][1] * inv0);
+    if (r1 < a.Lq)
+      Io<T>::store2(ob + r1 * a.so[2] + c, o[j][2] * inv1, o[j][3] * inv1);
+  }
+  if (a.stats && t == 0) {
+    const size_t rows = (size_t)gridDim.z * a.H * a.Lq;
+    float* st = a.stats + ((size_t)b * a.H + h) * a.Lq;
+    if (r0 < a.Lq) { st[r0] = m[0]; st[rows + r0] = inv0; }
+    if (r1 < a.Lq) { st[r1] = m[1]; st[rows + r1] = inv1; }
   }
 }
 
-// ------------------------------------------------- backward, launch 1: dq
+// ------------------------------------------------------------ backward
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* bias;       // (B, Lk) or null
+  const float* stats;      // (2, B, H, Lq) from the forward
+  float* delta;            // (B, H, Lq) scratch, launch 1 -> launch 2
+  void *dq, *dk, *dv;
+  float* dbias_part;       // (B, H, Lk) or null
+  long long sq[3], sk[3], sv[3], so[3], sd[3], sdq[3], sdk[3], sdv[3];
+  int H, Lq, Lk;
+  float scale;
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const float* __restrict__ bias,
-            const T* __restrict__ o, const T* __restrict__ dout,
-            T* __restrict__ dq, float* __restrict__ row_max,
-            float* __restrict__ row_inv, float* __restrict__ row_delta,
-            int H, int Lq, int Lk, float scale) {
-  constexpr int QS = D + 8;
-  __shared__ __align__(16) bf16 sQ[kBQ * QS];   // q tile, then dout tile
-  __shared__ __align__(16) bf16 sK[kBK * QS];
-  __shared__ __align__(16) bf16 sV[kBK * QS];
-  __shared__ float sBias[kBK];
+struct DqSmem {
+  static constexpr int S = Pad<T, D>::R;
+  static constexpr int Q = 64 * S * sizeof(T);          // q, then dout
+  static constexpr int TILE = kBK * S * sizeof(T);
+  static constexpr int STAGE = 2 * TILE + kBK * 4;      // k, v, bias
+  static constexpr int BYTES = 2 * Q + kDqStages * STAGE;
+};
+
+template <typename T, int D>
+struct DkdvSmem {
+  static constexpr int S = Pad<T, D>::R;
+  static constexpr int KV = kBK * S * sizeof(T);        // k, then v
+  static constexpr int TILE = kBQ2 * S * sizeof(T);
+  static constexpr int STAGE = 2 * TILE + 3 * kBQ2 * 4; // q, dout, stats
+  static constexpr int BYTES = 2 * KV + kDkdvStages * STAGE;
+};
+
+// launch 1: dq, and delta for launch 2
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads) attn_bwd_dq(BwdArgs a) {
+  using L = DqSmem<T, D>;
+  constexpr int NT = kBwdThreads, S = L::S, BQ = 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sDo = reinterpret_cast<T*>(smem + L::Q);
+  unsigned char* ring = smem + 2 * L::Q;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const T* kb = k + bh * Lk * D;
-  const T* vb = v + bh * Lk * D;
-  const float* biasb = bias ? bias + (size_t)blockIdx.z * Lk : nullptr;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const T* obp = static_cast<const T*>(a.o) + b * a.so[0] + h * a.so[1];
+  const T* db = static_cast<const T*>(a.dout) + b * a.sd[0] + h * a.sd[1];
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.Lk : nullptr;
+  const size_t rows = (size_t)gridDim.z * a.H * a.Lq;
+  const size_t bh = ((size_t)b * a.H + h) * a.Lq;
+  const int n_tiles = (a.Lk + kBK - 1) / kBK;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
 
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  stage_rows<T, D, QS>(sQ, q + bh * Lq * D, q0, kBQ, Lq, tid);
-  __syncthreads();
-  load_afrag<D, QS>(qa, sQ + warp * 16 * QS, g, t);
-  __syncthreads();
-  stage_rows<T, D, QS>(sQ, dout + bh * Lq * D, q0, kBQ, Lq, tid);
-  __syncthreads();
-  load_afrag<D, QS>(da, sQ + warp * 16 * QS, g, t);
+  auto tile_k = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * L::STAGE);
+  };
+  auto tile_v = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * L::STAGE + L::TILE);
+  };
+  auto tile_b = [&](int s) {
+    return reinterpret_cast<float*>(ring + s * L::STAGE + 2 * L::TILE);
+  };
+  auto issue = [&](int tile) {
+    const int s = tile % kDqStages, k0 = tile * kBK;
+    stage_async<T, D, S, NT>(tile_k(s), kb, a.sk[2], k0, kBK, a.Lk, tid);
+    stage_async<T, D, S, NT>(tile_v(s), vb, a.sv[2], k0, kBK, a.Lk, tid);
+    if (biasb) stage_vec_async<NT>(tile_b(s), biasb, k0, kBK, a.Lk, tid);
+  };
 
-  // delta = rowsum(dout * out) in f32 from the inputs as given
-  float delta[2] = {0.f, 0.f};
+  stage_async<T, D, S, NT>(sQ, qb, a.sq[2], q0, BQ, a.Lq, tid);
+  stage_async<T, D, S, NT>(sDo, db, a.sd[2], q0, BQ, a.Lq, tid);
+#pragma unroll
+  for (int s = 0; s < kDqStages - 1; ++s) {
+    if (s < n_tiles) issue(s);
+    cp_async_commit();
+  }
+
+  // while those land: the forward's row statistics (a query past Lq gets
+  // p = exp(x - inf) * 0 = 0) and delta = rowsum(dout * out) in f32 from
+  // the inputs as given
+  float m[2], inv[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    m[r] = row < a.Lq ? a.stats[bh + row] : INFINITY;
+    inv[r] = row < a.Lq ? a.stats[rows + bh + row] : 0.f;
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
-    if (r0 < Lq) {
-      const float2 a = Io<T>::load2(dout + (bh * Lq + r0) * D + c);
-      const float2 b = Io<T>::load2(o + (bh * Lq + r0) * D + c);
-      delta[0] += a.x * b.x + a.y * b.y;
+    if (r0 < a.Lq) {
+      const float2 x = Io<T>::load2(db + r0 * a.sd[2] + c);
+      const float2 y = Io<T>::load2(obp + r0 * a.so[2] + c);
+      delta[0] += x.x * y.x + x.y * y.y;
     }
-    if (r1 < Lq) {
-      const float2 a = Io<T>::load2(dout + (bh * Lq + r1) * D + c);
-      const float2 b = Io<T>::load2(o + (bh * Lq + r1) * D + c);
-      delta[1] += a.x * b.x + a.y * b.y;
+    if (r1 < a.Lq) {
+      const float2 x = Io<T>::load2(db + r1 * a.sd[2] + c);
+      const float2 y = Io<T>::load2(obp + r1 * a.so[2] + c);
+      delta[1] += x.x * y.x + x.y * y.y;
     }
   }
   delta[0] = quad_sum(delta[0]);
   delta[1] = quad_sum(delta[1]);
-
-  // sweep 1: row max and sum
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < Lk; k0 += kBK) {
-    __syncthreads();
-    stage_keys<T, D, QS>(sK, sV, sBias, kb, nullptr, biasb, k0, Lk, tid);
-    __syncthreads();
-    float s[kBK / 8][4];
-    biased_scores<D, QS>(s, qa, sK, sBias, scale, g, t);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(mx[r]));
-      l[r] *= m[r] == -INFINITY ? 0.f : __expf(m[r] - mn);
-      m[r] = mn;
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      l[0] += __expf(s[j][0] - m[0]) + __expf(s[j][1] - m[0]);
-      l[1] += __expf(s[j][2] - m[1]) + __expf(s[j][3] - m[1]);
-    }
+  if (t == 0) {
+    if (r0 < a.Lq) a.delta[bh + r0] = delta[0];
+    if (r1 < a.Lq) a.delta[bh + r1] = delta[1];
   }
-  const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
 
-  // sweep 2: p, dp, ds, dq
+  uint32_t qa[D / 16][4], da[D / 16][4];
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += kBK) {
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kDqStages - 2>();
     __syncthreads();
-    stage_keys<T, D, QS>(sK, sV, sBias, kb, vb, biasb, k0, Lk, tid);
-    __syncthreads();
-    float s[kBK / 8][4], dp[kBK / 8][4];
-    biased_scores<D, QS>(s, qa, sK, sBias, scale, g, t);
-    mma_abt<D, kBK, QS>(dp, da, sV, g, t);
+    if (it + kDqStages - 1 < n_tiles) issue(it + kDqStages - 1);
+    cp_async_commit();
+    if (it == 0) {
+      load_afrag<D, S>(qa, sQ + warp * 16 * S, g, t);
+      load_afrag<D, S>(da, sDo + warp * 16 * S, g, t);
+    }
+    const int s = it % kDqStages;
+    float sc[kBK / 8][4], dp[kBK / 8][4];
+    mma_abt<D, kBK, S>(sc, qa, tile_k(s), g, t);
+    bias_scores<kBK>(sc, biasb ? tile_b(s) : nullptr, it * kBK, a.Lk,
+                     a.scale, t);
+    mma_abt<D, kBK, S>(dp, da, tile_v(s), g, t);
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const float p = __expf(s[j][e] - m[r]) * inv[r];
-        s[j][e] = p * (dp[j][e] - delta[r]) * scale;   // ds * scale
+        const float p = __expf(sc[j][e] - m[r]) * inv[r];
+        sc[j][e] = p * (dp[j][e] - delta[r]) * a.scale;   // ds * scale
       }
     }
-    mma_pb<kBK, D, QS>(acc, s, sK, lane);
+    mma_pb<kBK, D, S>(acc, sc, tile_k(s), lane);
   }
 
+  T* dqb = static_cast<T*>(a.dq) + b * a.sdq[0] + h * a.sdq[1];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
-    if (r0 < Lq)
-      Io<T>::store2(dq + (bh * Lq + r0) * D + c, acc[j][0], acc[j][1]);
-    if (r1 < Lq)
-      Io<T>::store2(dq + (bh * Lq + r1) * D + c, acc[j][2], acc[j][3]);
-  }
-  if (t == 0) {
-    if (r0 < Lq) {
-      row_max[bh * Lq + r0] = m[0];
-      row_inv[bh * Lq + r0] = inv[0];
-      row_delta[bh * Lq + r0] = delta[0];
-    }
-    if (r1 < Lq) {
-      row_max[bh * Lq + r1] = m[1];
-      row_inv[bh * Lq + r1] = inv[1];
-      row_delta[bh * Lq + r1] = delta[1];
-    }
+    if (r0 < a.Lq)
+      Io<T>::store2(dqb + r0 * a.sdq[2] + c, acc[j][0], acc[j][1]);
+    if (r1 < a.Lq)
+      Io<T>::store2(dqb + r1 * a.sdq[2] + c, acc[j][2], acc[j][3]);
   }
 }
 
-// ------------------------------------------- backward, launch 2: dk, dv
+// launch 2: dk, dv and the per-head partial sums of the bias gradient
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ bias,
-              const T* __restrict__ dout, const float* __restrict__ row_max,
-              const float* __restrict__ row_inv,
-              const float* __restrict__ row_delta, T* __restrict__ dk,
-              T* __restrict__ dv, float* __restrict__ dbias_part, int H,
-              int Lq, int Lk, float scale) {
-  constexpr int QS = D + 8;
-  __shared__ __align__(16) bf16 sK[kBK * QS];   // k tile, then v tile
-  __shared__ __align__(16) bf16 sQ[kBQ2 * QS];
-  __shared__ __align__(16) bf16 sDo[kBQ2 * QS];
-  __shared__ float sM[kBQ2], sInv[kBQ2], sDelta[kBQ2];
+__global__ void __launch_bounds__(kBwdThreads) attn_bwd_dkdv(BwdArgs a) {
+  using L = DkdvSmem<T, D>;
+  constexpr int NT = kBwdThreads, S = L::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = reinterpret_cast<T*>(smem + L::KV);
+  unsigned char* ring = smem + 2 * L::KV;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kBK;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const T* qb = q + bh * Lq * D;
-  const T* db = dout + bh * Lq * D;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBK;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const T* db = static_cast<const T*>(a.dout) + b * a.sd[0] + h * a.sd[1];
+  const size_t rows = (size_t)gridDim.z * a.H * a.Lq;
+  const size_t bh = ((size_t)b * a.H + h) * a.Lq;
+  const int n_tiles = (a.Lq + kBQ2 - 1) / kBQ2;
   const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;   // this thread's keys
   float kbias[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = r ? kr1 : kr0;
-    kbias[r] = key < Lk ? (bias ? bias[(size_t)blockIdx.z * Lk + key] : 0.f)
-                        : -INFINITY;
+    kbias[r] = key < a.Lk
+                   ? (a.bias ? a.bias[(size_t)b * a.Lk + key] : 0.f)
+                   : -INFINITY;
+  }
+
+  auto tile_q = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * L::STAGE);
+  };
+  auto tile_do = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * L::STAGE + L::TILE);
+  };
+  auto tile_stat = [&](int s) {        // max, 1/sum, delta: kBQ2 each
+    return reinterpret_cast<float*>(ring + s * L::STAGE + 2 * L::TILE);
+  };
+  auto issue = [&](int tile) {
+    const int s = tile % kDkdvStages, q0 = tile * kBQ2;
+    stage_async<T, D, S, NT>(tile_q(s), qb, a.sq[2], q0, kBQ2, a.Lq, tid);
+    stage_async<T, D, S, NT>(tile_do(s), db, a.sd[2], q0, kBQ2, a.Lq, tid);
+    float* st = tile_stat(s);
+    stage_vec_async<NT>(st, a.stats + bh, q0, kBQ2, a.Lq, tid);
+    stage_vec_async<NT>(st + kBQ2, a.stats + rows + bh, q0, kBQ2, a.Lq,
+                        tid);
+    stage_vec_async<NT>(st + 2 * kBQ2, a.delta + bh, q0, kBQ2, a.Lq, tid);
+  };
+
+  stage_async<T, D, S, NT>(sK, kb, a.sk[2], k0, kBK, a.Lk, tid);
+  stage_async<T, D, S, NT>(sV, vb, a.sv[2], k0, kBK, a.Lk, tid);
+#pragma unroll
+  for (int s = 0; s < kDkdvStages - 1; ++s) {
+    if (s < n_tiles) issue(s);
+    cp_async_commit();
   }
 
   uint32_t ka[D / 16][4], va[D / 16][4];
-  stage_rows<T, D, QS>(sK, k + bh * Lk * D, k0, kBK, Lk, tid);
-  __syncthreads();
-  load_afrag<D, QS>(ka, sK + warp * 16 * QS, g, t);
-  __syncthreads();
-  stage_rows<T, D, QS>(sK, v + bh * Lk * D, k0, kBK, Lk, tid);
-  __syncthreads();
-  load_afrag<D, QS>(va, sK + warp * 16 * QS, g, t);
-
   float dkacc[D / 8][4], dvacc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -488,64 +618,68 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   }
   float dbias[2] = {0.f, 0.f};
 
-  for (int q0 = 0; q0 < Lq; q0 += kBQ2) {
-    __syncthreads();                              // previous tile consumed
-    stage_rows<T, D, QS>(sQ, qb, q0, kBQ2, Lq, tid);
-    stage_rows<T, D, QS>(sDo, db, q0, kBQ2, Lq, tid);
-    for (int i = tid; i < kBQ2; i += kThreads) {
-      const bool in = q0 + i < Lq;
-      // a query past Lq gets p = exp(x - inf) * 0 = 0
-      sM[i] = in ? row_max[bh * Lq + q0 + i] : INFINITY;
-      sInv[i] = in ? row_inv[bh * Lq + q0 + i] : 0.f;
-      sDelta[i] = in ? row_delta[bh * Lq + q0 + i] : 0.f;
-    }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kDkdvStages - 2>();
     __syncthreads();
+    if (it + kDkdvStages - 1 < n_tiles) issue(it + kDkdvStages - 1);
+    cp_async_commit();
+    if (it == 0) {
+      load_afrag<D, S>(ka, sK + warp * 16 * S, g, t);
+      load_afrag<D, S>(va, sV + warp * 16 * S, g, t);
+    }
+    const int s = it % kDkdvStages, q0 = it * kBQ2;
+    const float* sM = tile_stat(s);
+    const float* sInv = sM + kBQ2;
+    const float* sDelta = sM + 2 * kBQ2;
 
-    // p^T and dp^T for this warp's 16 keys and the tile's 32 queries
+    // p^T and dp^T for this warp's 16 keys and the tile's queries
     float st[kBQ2 / 8][4], dpt[kBQ2 / 8][4];
-    mma_abt<D, kBQ2, QS>(st, ka, sQ, g, t);
-    mma_abt<D, kBQ2, QS>(dpt, va, sDo, g, t);
+    mma_abt<D, kBQ2, S>(st, ka, tile_q(s), g, t);
+    mma_abt<D, kBQ2, S>(dpt, va, tile_do(s), g, t);
 #pragma unroll
     for (int j = 0; j < kBQ2 / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, col = j * 8 + 2 * t + (e & 1);
-        const float x = __fadd_rn(__fmul_rn(st[j][e], scale), kbias[r]);
-        const float p = __expf(x - sM[col]) * sInv[col];
+        const float x = __fadd_rn(__fmul_rn(st[j][e], a.scale), kbias[r]);
+        const float p =
+            q0 + col < a.Lq ? __expf(x - sM[col]) * sInv[col] : 0.f;
         const float ds = p * (dpt[j][e] - sDelta[col]);
         dbias[r] += ds;
         st[j][e] = p;
-        dpt[j][e] = ds * scale;
+        dpt[j][e] = ds * a.scale;
       }
     }
-    mma_pb<kBQ2, D, QS>(dvacc, st, sDo, lane);
-    mma_pb<kBQ2, D, QS>(dkacc, dpt, sQ, lane);
+    mma_pb<kBQ2, D, S>(dvacc, st, tile_do(s), lane);
+    mma_pb<kBQ2, D, S>(dkacc, dpt, tile_q(s), lane);
   }
 
-  const size_t base = bh * Lk;
+  T* dkb = static_cast<T*>(a.dk) + b * a.sdk[0] + h * a.sdk[1];
+  T* dvb = static_cast<T*>(a.dv) + b * a.sdv[0] + h * a.sdv[1];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
-    if (kr0 < Lk) {
-      Io<T>::store2(dk + (base + kr0) * D + c, dkacc[j][0], dkacc[j][1]);
-      Io<T>::store2(dv + (base + kr0) * D + c, dvacc[j][0], dvacc[j][1]);
+    if (kr0 < a.Lk) {
+      Io<T>::store2(dkb + kr0 * a.sdk[2] + c, dkacc[j][0], dkacc[j][1]);
+      Io<T>::store2(dvb + kr0 * a.sdv[2] + c, dvacc[j][0], dvacc[j][1]);
     }
-    if (kr1 < Lk) {
-      Io<T>::store2(dk + (base + kr1) * D + c, dkacc[j][2], dkacc[j][3]);
-      Io<T>::store2(dv + (base + kr1) * D + c, dvacc[j][2], dvacc[j][3]);
+    if (kr1 < a.Lk) {
+      Io<T>::store2(dkb + kr1 * a.sdk[2] + c, dkacc[j][2], dkacc[j][3]);
+      Io<T>::store2(dvb + kr1 * a.sdv[2] + c, dvacc[j][2], dvacc[j][3]);
     }
   }
-  if (dbias_part) {
+  if (a.dbias_part) {
     dbias[0] = quad_sum(dbias[0]);
     dbias[1] = quad_sum(dbias[1]);
     if (t == 0) {
-      if (kr0 < Lk) dbias_part[base + kr0] = dbias[0];
-      if (kr1 < Lk) dbias_part[base + kr1] = dbias[1];
+      const size_t base = ((size_t)b * a.H + h) * a.Lk;
+      if (kr0 < a.Lk) a.dbias_part[base + kr0] = dbias[0];
+      if (kr1 < a.Lk) a.dbias_part[base + kr1] = dbias[1];
     }
   }
 }
 
-// ---------------------------------------- backward, launch 3: d(key_bias)
+// launch 3: d(key_bias) = the sum over heads of launch 2's partials
 __global__ void attn_bwd_dbias(const float* __restrict__ part,
                                float* __restrict__ dbias, int B, int H,
                                int Lk) {
@@ -557,89 +691,129 @@ __global__ void attn_bwd_dbias(const float* __restrict__ part,
   dbias[i] = s;
 }
 
+template <typename T, int D, int NW, int STAGES>
+cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t st) {
+  constexpr int bytes = FwdSmem<T, D, NW, STAGES>::BYTES;
+  // once per kernel and process
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_fwd<T, D, NW, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.Lq + NW * 16 - 1) / (NW * 16), a.H, B);
+  attn_fwd<T, D, NW, STAGES><<<grid, NW * 32, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+// bq: query rows a block (64 or 32); stages: ring depth (2 or 3)
 template <typename T, int D>
-int forward(const void* q, const void* k, const void* v, const void* bias,
-            void* out, int B, int H, int Lq, int Lk, float scale,
-            cudaStream_t st) {
-  dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  attn_fwd<T, D><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), H, Lq, Lk, scale);
-  return static_cast<int>(cudaGetLastError());
+cudaError_t forward(const FwdArgs& a, int B, int bq, int stages,
+                    cudaStream_t st) {
+  if (bq == 64 && stages == 2) return launch_fwd<T, D, 4, 2>(a, B, st);
+  if (bq == 64 && stages == 3) return launch_fwd<T, D, 4, 3>(a, B, st);
+  if (bq == 32 && stages == 2) return launch_fwd<T, D, 2, 2>(a, B, st);
+  if (bq == 32 && stages == 3) return launch_fwd<T, D, 2, 3>(a, B, st);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
-int backward(const void* q, const void* k, const void* v, const void* bias,
-             const void* o, const void* dout, void* dq, void* dk, void* dv,
-             void* dbias, float* stats, float* dbias_part, int B, int H,
-             int Lq, int Lk, float scale, cudaStream_t st) {
-  const size_t rows = (size_t)B * H * Lq;
-  float* row_max = stats;
-  float* row_inv = stats + rows;
-  float* row_delta = stats + 2 * rows;
-  const float* bp = static_cast<const float*>(bias);
-  attn_bwd_dq<T, D><<<dim3((Lq + kBQ - 1) / kBQ, H, B), kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bp, static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<T*>(dq), row_max, row_inv,
-      row_delta, H, Lq, Lk, scale);
+cudaError_t backward(const BwdArgs& a, int B, float* dbias,
+                     cudaStream_t st) {
+  constexpr int dq_bytes = DqSmem<T, D>::BYTES;
+  constexpr int dkdv_bytes = DkdvSmem<T, D>::BYTES;
+  static const cudaError_t attr_dq = cudaFuncSetAttribute(
+      attn_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_bytes);
+  static const cudaError_t attr_dkdv = cudaFuncSetAttribute(
+      attn_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_bytes);
+  if (attr_dq != cudaSuccess) return attr_dq;
+  if (attr_dkdv != cudaSuccess) return attr_dkdv;
+  attn_bwd_dq<T, D><<<dim3((a.Lq + 63) / 64, a.H, B), kBwdThreads,
+                      dq_bytes, st>>>(a);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv<T, D><<<dim3((Lk + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bp, static_cast<const T*>(dout), row_max,
-      row_inv, row_delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      dbias ? dbias_part : nullptr, H, Lq, Lk, scale);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv<T, D><<<dim3((a.Lk + kBK - 1) / kBK, a.H, B), kBwdThreads,
+                        dkdv_bytes, st>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !dbias) return static_cast<int>(err);
-  const int n = B * Lk;
-  attn_bwd_dbias<<<(n + 255) / 256, 256, 0, st>>>(
-      dbias_part, static_cast<float*>(dbias), B, H, Lk);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || !dbias) return err;
+  const int n = B * a.Lk;
+  attn_bwd_dbias<<<(n + 255) / 256, 256, 0, st>>>(a.dbias_part, dbias, B,
+                                                  a.H, a.Lk);
+  return cudaGetLastError();
+}
+
+void copy3(long long dst[3], const long long* src) {
+  dst[0] = src[0];
+  dst[1] = src[1];
+  dst[2] = src[2];
 }
 
 }  // namespace
 
-// f32 != 0: q, k, v and out are f32, else bf16
+// f32 != 0: q, k, v and out are f32, else bf16. stats: (2, B, H, Lq) f32
+// or null. strides: the B, H and L strides (elements) of q, k, v and out,
+// 12 values. bq and stages as the wrapper's _attn_plan gives them.
 extern "C" int attention_forward(const void* q, const void* k, const void* v,
-                                 const void* bias, void* out, int B, int H,
-                                 int Lq, int Lk, int D, int f32, float scale,
-                                 void* stream) {
+                                 const void* bias, void* out, void* stats,
+                                 const long long* strides, int B, int H,
+                                 int Lq, int Lk, int D, int f32, int bq,
+                                 int stages, float scale, void* stream) {
+  FwdArgs a;
+  a.q = q; a.k = k; a.v = v;
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.stats = static_cast<float*>(stats);
+  copy3(a.sq, strides);
+  copy3(a.sk, strides + 3);
+  copy3(a.sv, strides + 6);
+  copy3(a.so, strides + 9);
+  a.H = H; a.Lq = Lq; a.Lk = Lk; a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
   if (D == 32)
-    return f32 ? forward<float, 32>(q, k, v, bias, out, B, H, Lq, Lk, scale, st)
-               : forward<bf16, 32>(q, k, v, bias, out, B, H, Lq, Lk, scale, st);
-  if (D == 64)
-    return f32 ? forward<float, 64>(q, k, v, bias, out, B, H, Lq, Lk, scale, st)
-               : forward<bf16, 64>(q, k, v, bias, out, B, H, Lq, Lk, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+    err = f32 ? forward<float, 32>(a, B, bq, stages, st)
+              : forward<bf16, 32>(a, B, bq, stages, st);
+  else if (D == 64)
+    err = f32 ? forward<float, 64>(a, B, bq, stages, st)
+              : forward<bf16, 64>(a, B, bq, stages, st);
+  return static_cast<int>(err);
 }
 
-// dq, dk, dv in the inputs' dtype; dbias (B, Lk) f32, or null when there is
-// no key bias; stats: 3 * B * H * Lq f32 scratch; dbias_part: B * H * Lk
-// f32 scratch (unused when dbias is null)
-extern "C" int attention_backward(const void* q, const void* k,
-                                  const void* v, const void* bias,
-                                  const void* o, const void* dout, void* dq,
-                                  void* dk, void* dv, void* dbias,
-                                  void* stats, void* dbias_part, int B,
-                                  int H, int Lq, int Lk, int D, int f32,
-                                  float scale, void* stream) {
+// dq, dk, dv in the inputs' dtype; stats: the forward's (2, B, H, Lq);
+// delta: (B, H, Lq) f32 scratch; dbias (B, Lk) f32, or null when no bias
+// gradient is asked for; dbias_part: (B, H, Lk) f32 scratch (null with
+// dbias). strides: the B, H and L strides of q, k, v, out, dout, dq, dk
+// and dv, 24 values.
+extern "C" int attention_backward(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* o, const void* dout, const void* stats, void* delta,
+    void* dq, void* dk, void* dv, void* dbias, void* dbias_part,
+    const long long* strides, int B, int H, int Lq, int Lk, int D, int f32,
+    float scale, void* stream) {
+  BwdArgs a;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
+  a.bias = static_cast<const float*>(bias);
+  a.stats = static_cast<const float*>(stats);
+  a.delta = static_cast<float*>(delta);
+  a.dq = dq; a.dk = dk; a.dv = dv;
+  a.dbias_part = dbias ? static_cast<float*>(dbias_part) : nullptr;
+  copy3(a.sq, strides);
+  copy3(a.sk, strides + 3);
+  copy3(a.sv, strides + 6);
+  copy3(a.so, strides + 9);
+  copy3(a.sd, strides + 12);
+  copy3(a.sdq, strides + 15);
+  copy3(a.sdk, strides + 18);
+  copy3(a.sdv, strides + 21);
+  a.H = H; a.Lq = Lq; a.Lk = Lk; a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* sp = static_cast<float*>(stats);
-  float* dp = static_cast<float*>(dbias_part);
-#define HOIGEN_BWD(T, DD)                                                    \
-  return backward<T, DD>(q, k, v, bias, o, dout, dq, dk, dv, dbias, sp, dp,  \
-                         B, H, Lq, Lk, scale, st)
-  if (D == 32) {
-    if (f32) HOIGEN_BWD(float, 32);
-    HOIGEN_BWD(bf16, 32);
-  }
-  if (D == 64) {
-    if (f32) HOIGEN_BWD(float, 64);
-    HOIGEN_BWD(bf16, 64);
-  }
-#undef HOIGEN_BWD
-  return static_cast<int>(cudaErrorInvalidValue);
+  float* db = static_cast<float*>(dbias);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 32)
+    err = f32 ? backward<float, 32>(a, B, db, st)
+              : backward<bf16, 32>(a, B, db, st);
+  else if (D == 64)
+    err = f32 ? backward<float, 64>(a, B, db, st)
+              : backward<bf16, 64>(a, B, db, st);
+  return static_cast<int>(err);
 }

@@ -59,6 +59,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(s), "l"(src), "r"(pred ? 16 : 0) : "memory");
 }
 
+// 4-byte asynchronous copy global -> shared, zero-filled when `pred` is
+// false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -110,7 +110,12 @@ def adapter_forward(p, x, prior, prior_mask, cfg: CLIPConfig,
 def _mhsa_fused(p, x, num_heads):
     """Unmasked self-attention through :func:`fused_attention` (K1 forward,
     K4 backward on CUDA; their plain versions on the CPU). The same math as
-    mha(q=kv=x) with no masks."""
+    mha(q=kv=x) with no masks.
+
+    q, k and v are passed as (B, H, L, D) views of the (B, L, H, D)
+    projections, which the kernels read through their strides; the output
+    comes back as the same kind of view, so the reshape to (B, L, E) after
+    the call, and autograd's reshapes of the gradients, copy nothing."""
     b, l, e = x.shape
     hd = e // num_heads
     dt = x.dtype

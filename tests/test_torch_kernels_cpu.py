@@ -22,8 +22,9 @@ from hoigen_tpu.ops.pallas_cache import _fused_forward as j_cache_forward
 from hoigen_tpu.ops.pallas_cache import \
     fused_cache_logits as j_fused_cache_logits
 
-from hoigen_tpu_torch.ops.attention import attention_bwd, \
-    attention_bwd_reference, attention_reference, fused_attention
+from hoigen_tpu_torch.ops.attention import _attn_plan, _layout_like, \
+    attention_bwd, attention_bwd_reference, attention_forward, \
+    attention_reference, fused_attention
 from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
 from hoigen_tpu_torch.ops.pallas_cache import _gemm_plan, \
     fused_cache_logits, kernel_operands
@@ -177,6 +178,114 @@ def test_attention_bwd_plain_rounds_at_the_kernel_points():
         assert a.dtype == torch.float32
         err = (a - w).abs().max().item() / w.abs().max().item()
         assert 1e-5 < err < 2 ** -5
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+def test_attention_bwd_plain_on_saved_stats(with_bias):
+    """K4 reads the forward's row max and 1/sum instead of recomputing
+    them. The plain backward on those saved statistics
+    (``attention_reference(..., return_stats=True)``) against the
+    recomputing one: 1e-6 of each gradient's scale (both rebuild p from
+    the same f32 max and 1/sum, so they agree to the bit here). Both
+    against the Pallas backward in interpret mode at Lq 36 != Lk 70,
+    within that test's 2e-5 of scale."""
+    q, k, v, g, bias = _bwd_inputs(36, with_bias, seed=9)
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    tb = None if bias is None else _t(bias)
+    out, stats = attention_reference(_t(q), _t(k), _t(v), tb,
+                                     return_stats=True)
+    b, h, lq, _ = q.shape
+    assert stats.shape == (2, b, h, lq) and stats.dtype == torch.float32
+    saved = attention_bwd_reference(_t(q), _t(k), _t(v), tb, out, _t(g),
+                                    stats=stats)
+    recomputed = attention_bwd_reference(_t(q), _t(k), _t(v), tb, out, _t(g))
+    jb = np.zeros((b, k.shape[2]), np.float32) if bias is None else bias
+    want = j_attention_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(jb), jnp.asarray(out.numpy()),
+                           jnp.asarray(g), scale, True, 384)
+    for name, a, r, w in zip(("dq", "dk", "dv", "db"), saved, recomputed,
+                             want):
+        if a is None:
+            assert r is None and bias is None
+            continue
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=0,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=name)
+        for x in (a, r):
+            np.testing.assert_allclose(x.numpy(), w, rtol=0,
+                                       atol=2e-5 * np.abs(w).max(),
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+def test_attention_keeps_the_callers_layout(with_bias):
+    """q, k and v as (B, H, L, D) views of (B, L, H, D) buffers, as the
+    CLIP tower passes them: the output and dq, dk and dv come back as the
+    same kind of view (``_layout_like``), and the values and the gradients
+    through autograd agree with those of contiguous copies within 1e-6 (on
+    the card the kernels read both through strides and must agree bit for
+    bit; CPU matmuls may take another path for a strided operand)."""
+    rng = np.random.default_rng(10)
+    b, l, h, d = 2, 37, 3, 32
+    q, k, v, g = (rng.normal(size=(b, l, h, d)).astype(np.float32)
+                  for _ in range(4))
+    bias = _t(rng.normal(size=(b, l)) * 0.5) if with_bias else None
+    views = [_t(x).transpose(1, 2) for x in (q, k, v, g)]
+    contig = [t.contiguous() for t in views]
+    assert all(_layout_like(t) for t in views)
+    assert not any(_layout_like(t) for t in contig)
+
+    out_v, st_v = attention_forward(*views[:3], bias, return_stats=True)
+    out_c, st_c = attention_forward(*contig[:3], bias, return_stats=True)
+    assert out_v.stride() == views[0].stride() and out_c.is_contiguous()
+    np.testing.assert_allclose(out_v.numpy(), out_c.numpy(), atol=1e-6)
+    np.testing.assert_allclose(st_v.numpy(), st_c.numpy(), atol=1e-6)
+    got = attention_bwd(*views[:3], bias, out_v, views[3], stats=st_v)
+    want = attention_bwd(*contig[:3], bias, out_c, contig[3], stats=st_c)
+    for a, w, like in zip(got[:3], want[:3], views):
+        assert a.stride() == like.stride() and w.is_contiguous()
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6)
+
+    def grads(make):
+        ins = [_t(x).requires_grad_() for x in (q, k, v)]
+        tb = None if bias is None else bias.clone().requires_grad_()
+        out = fused_attention(*(make(t) for t in ins), tb)
+        out.backward(make(_t(g)))
+        return out, [t.grad for t in ins] + [None if tb is None else tb.grad]
+
+    out_v, g_v = grads(lambda t: t.transpose(1, 2))
+    out_c, g_c = grads(lambda t: t.transpose(1, 2).contiguous())
+    assert out_v.stride() == views[0].stride()
+    np.testing.assert_allclose(out_v.detach().numpy(),
+                               out_c.detach().numpy(), atol=1e-6)
+    for a, w in zip(g_v, g_c):
+        if w is None:
+            assert a is None
+            continue
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,dtype",
+                         [(4, 12, 197, 197, 64, torch.float32),
+                          (4, 8, 1050, 1050, 32, torch.bfloat16),
+                          (2, 3, 70, 150, 32, torch.bfloat16)],
+                         ids=["clip-f32", "detr-bf16", "cross-bf16"])
+def test_attn_plan_covers_the_queries_and_fits(b, h, lq, lk, d, dtype):
+    """K1's launch (``_attn_plan``): the grid covers Lq with no empty
+    query tile, and every head and image; the block's shared memory (the
+    q tile and the ring of K and V tiles) fits the 232,448 bytes a block
+    may have, and at f32 two blocks fit an SM's 233,472; the CLIP
+    training shape gets at least one block for each of the 132 SMs."""
+    bq, stages, smem, grid = _attn_plan(b, h, lq, lk, d, dtype)
+    assert bq in (32, 64) and stages in (2, 3)
+    assert grid[0] * bq >= lq and (grid[0] - 1) * bq < lq
+    assert grid[1:] == (h, b)
+    item = 4 if dtype == torch.float32 else 2
+    assert stages * 64 * 2 * d * item < smem <= 232448
+    if dtype == torch.float32:
+        assert 2 * (smem + 1024) <= 233472
+    if (h, lq, d) == (12, 197, 64):
+        assert grid[0] * grid[1] * grid[2] >= 132
 
 
 # ------------------------------------------------- K2 fused bottleneck chain

@@ -20,6 +20,7 @@ import torch
 
 from hoigen_tpu.engine import hoi_model as jhm
 from hoigen_tpu.models.cache import random_caches as j_random_caches
+from hoigen_tpu.models.clip import model as j_clip
 from hoigen_tpu.models.clip.config import CLIPConfig as JCLIPConfig
 from hoigen_tpu.models.detr import DETRConfig as JDETRConfig
 from hoigen_tpu.models.proposals import ProposalConfig as JProposalConfig
@@ -33,6 +34,7 @@ from hoigen_tpu_torch.engine.checkpoint import latest_checkpoint, \
     restore_checkpoint, save_checkpoint
 from hoigen_tpu_torch.engine.train import Trainer
 from hoigen_tpu_torch.models.cache import random_caches as t_random_caches
+from hoigen_tpu_torch.models.clip import model as t_clip
 from hoigen_tpu_torch.models.clip.config import CLIPConfig as TCLIPConfig
 from hoigen_tpu_torch.models.clip.model import apply_dropout
 from hoigen_tpu_torch.models.detr.config import DETRConfig as TDETRConfig
@@ -195,6 +197,46 @@ def test_dropout_keep_rate_and_scale(rate):
         apply_dropout(x, rate, torch.Generator().manual_seed(3)).numpy(),
         y.numpy())
     assert apply_dropout(x, rate, None) is x
+
+
+# --------------------------------------------------------------- CLIP block
+def test_clip_fused_self_attention_matches_mha_and_jax():
+    """One CLIP block's self-attention through ``_mhsa_fused`` (the fused
+    attention on (B, H, L, D) views of the projections, whose output comes
+    back as such a view) against the port's plain ``mha`` and the JAX
+    package's ``_mhsa_fused``, f32, on the CPU: the output and the
+    gradients of the input and the four weights for one output gradient.
+    2e-5 of each result's scale: f32 on every side, the softmax and the
+    products summed in other orders."""
+    rng = np.random.default_rng(21)
+    b, l, e, heads = 2, 17, 64, 4
+    x = rng.normal(size=(b, l, e)).astype(np.float32)
+    g = rng.normal(size=(b, l, e)).astype(np.float32)
+    p = {"w_qkv": rng.normal(size=(3 * e, e)) * 0.1,
+         "b_qkv": rng.normal(size=3 * e) * 0.1,
+         "w_out": rng.normal(size=(e, e)) * 0.1,
+         "b_out": rng.normal(size=e) * 0.1}
+    p = {n: a.astype(np.float32) for n, a in p.items()}
+
+    def jloss(p_, x_):
+        return jnp.sum(j_clip._mhsa_fused(p_, x_, heads) * g)
+
+    jp = {n: jnp.asarray(a) for n, a in p.items()}
+    want_y = np.asarray(j_clip._mhsa_fused(jp, jnp.asarray(x), heads))
+    want_gp, want_gx = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+
+    for fn in (t_clip._mhsa_fused,
+               lambda p_, x_, n: t_clip.mha(p_, x_, x_, n)):
+        tp = {n: torch.as_tensor(a).requires_grad_() for n, a in p.items()}
+        tx = torch.as_tensor(x).requires_grad_()
+        y = fn(tp, tx, heads)
+        y.backward(torch.as_tensor(g))
+        pairs = [(y.detach(), want_y), (tx.grad, want_gx)] + \
+            [(tp[n].grad, want_gp[n]) for n in p]
+        for got, want in pairs:
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=2e-5 * np.abs(want).max())
 
 
 # ---------------------------------------------------- partition and bridge
