@@ -77,26 +77,37 @@ using namespace hoigen;
 
 namespace {
 
-constexpr int kBK = 64;           // keys per tile; keys per dk/dv block
-constexpr int kBQ2 = 32;          // queries per tile of the dk/dv loop
-constexpr int kBwdThreads = 128;  // 4 warps of 16 rows (dq) or keys (dk/dv)
-constexpr int kDqStages = 2;
+constexpr int kBK = 64;           // keys per tile of the forward
+constexpr int kBwdRows = 64;      // query rows of a dq block, keys of a dk/dv
+constexpr int kBwdThreads = 128;  // ... 16 a warp
+constexpr int kBQ2 = 32;          // keys (dq) or queries (dk/dv) a tile
+constexpr int kDqStages = 3;      // the backward's rings
 constexpr int kDkdvStages = 3;
 
-// Shared-memory row strides, in elements: R for rows read as pairs along D
-// (and by ldmatrix for bf16), V for the forward's f32 V rows, read down
-// the keys
+// Shared-memory row strides, in elements: R for the rows as staged (f32
+// rows padded to D + 4, 16-byte aligned for cp.async; bf16 rows to D + 8),
+// B for the bf16 rows the products read (D + 8: 4-byte fragment loads and
+// ldmatrix free of bank conflicts). An f32 tile is converted from R rows
+// to B rows once per block; a bf16 tile is read where it landed.
 template <typename T, int D>
 struct Pad {
-  static constexpr int R = D + 8;
-  static constexpr int V = sizeof(T) == 4 ? D + 4 : D + 8;
+  static constexpr int R = sizeof(T) == 4 ? D + 4 : D + 8;
+  static constexpr int B = D + 8;
+  static constexpr bool kConvert = sizeof(T) == 4;
+  // bytes of `rows` converted bf16 rows (none for bf16 operands)
+  static constexpr int conv(int rows) { return kConvert ? rows * B * 2 : 0; }
 };
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <typename T>
 struct Io;
 
 template <>
 struct Io<bf16> {
+  static __device__ __forceinline__ uint4 load8(const bf16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
   static __device__ __forceinline__ float2 load2(const bf16* p) {
     return unpack_bf16(ld32(p));
   }
@@ -107,6 +118,12 @@ struct Io<bf16> {
 
 template <>
 struct Io<float> {
+  static __device__ __forceinline__ uint4 load8(const float* p) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                      pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+  }
   static __device__ __forceinline__ float2 load2(const float* p) {
     return *reinterpret_cast<const float2*>(p);
   }
@@ -124,28 +141,35 @@ __device__ __forceinline__ uint32_t pair(const float* p) {
   return pack_bf16(x.x, x.y);
 }
 
-// rows [r0, r0 + rows) of a matrix with row stride ld (elements) into
-// shared memory with row stride S, by 16-byte cp.async; rows at or past L
-// are zero-filled
-template <typename T, int D, int S, int NT>
+// rows [r0, r0 + ROWS) of a matrix with row stride ld (elements) into
+// shared memory with row stride S, by 16-byte cp.async (each thread keeps
+// one column and steps down the rows); rows at or past L are zero-filled
+template <typename T, int D, int S, int NT, int ROWS>
 __device__ __forceinline__ void stage_async(T* dst, const T* src,
-                                            long long ld, int r0, int rows,
-                                            int L, int tid) {
-  constexpr int PER = 16 / sizeof(T), CH = D / PER;
-  for (int i = tid; i < rows * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * PER;
-    const bool in = r0 + r < L;
-    cp_async16(dst + r * S + c, in ? src + (r0 + r) * ld + c : src, in);
+                                            long long ld, int r0, int L,
+                                            int tid) {
+  constexpr int PER = 16 / sizeof(T), CH = D / PER, STEP = NT / CH;
+  static_assert(NT % CH == 0, "whole rows a pass");
+  const int c = (tid % CH) * PER, rt = tid / CH;
+  const T* from = src + (r0 + rt) * ld + c;
+  T* to = dst + rt * S + c;
+#pragma unroll
+  for (int k = 0; k < (ROWS + STEP - 1) / STEP; ++k) {
+    const int r = rt + k * STEP;
+    if (ROWS % STEP == 0 || r < ROWS) {
+      const bool in = r0 + r < L;
+      cp_async16(to + k * STEP * S, in ? from + k * STEP * ld : src, in);
+    }
   }
 }
 
-// src[i0 .. i0 + n) into shared memory by 4-byte cp.async, zero at or past
+// src[i0 .. i0 + N) into shared memory by 4-byte cp.async, zero at or past
 // index `valid`
-template <int NT>
+template <int NT, int N>
 __device__ __forceinline__ void stage_vec_async(float* dst, const float* src,
-                                                int i0, int n, int valid,
-                                                int tid) {
-  for (int i = tid; i < n; i += NT) {
+                                                int i0, int valid, int tid) {
+#pragma unroll
+  for (int i = tid; i < N; i += NT) {
     const bool in = i0 + i < valid;
     cp_async4(dst + i, in ? src + i0 + i : src, in);
   }
@@ -165,19 +189,19 @@ __device__ __forceinline__ void load_afrag(uint32_t a[D / 16][4],
 }
 
 // c[j] (n-tile j of N columns) = A (16 x D, fragments a) times B^T, where B
-// is stored (n, d) row-major in shared memory with row stride S
-template <int D, int N, int S, typename T>
+// is stored (n, d) row-major as bf16 in shared memory with row stride S
+template <int D, int N, int S>
 __device__ __forceinline__ void mma_abt(float c[N / 8][4],
-                                        uint32_t a[D / 16][4], const T* b,
+                                        uint32_t a[D / 16][4], const bf16* b,
                                         int g, int t) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-    const T* row = b + (j * 8 + g) * S;
+    const bf16* row = b + (j * 8 + g) * S;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_bf16(c[j], a[kk], pair(row + kk * 16 + 2 * t),
-               pair(row + kk * 16 + 2 * t + 8));
+      mma_bf16(c[j], a[kk], ld32(row + kk * 16 + 2 * t),
+               ld32(row + kk * 16 + 2 * t + 8));
   }
 }
 
@@ -214,23 +238,31 @@ __device__ __forceinline__ void mma_pb(float acc[D / 8][4],
   }
 }
 
-// ... and f32 rows, read one value a key and rounded to bf16 in pairs
-template <int K, int D, int S>
-__device__ __forceinline__ void mma_pb(float acc[D / 8][4],
-                                       float p[K / 8][4], const float* b,
-                                       int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t pa[4];
-    p_frag<K>(pa, p, kk);
-    const float* rows = b + (kk * 16 + 2 * t) * S + g;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float* c = rows + j * 8;
-      mma_bf16(acc[j], pa, pack_bf16(c[0], c[S]),
-               pack_bf16(c[8 * S], c[9 * S]));
-    }
+// rows x D of an f32 tile staged with row stride D + 4 into bf16 rows with
+// row stride D + 8 (round to nearest even), by all NT threads of the block
+template <int D, int NT>
+__device__ __forceinline__ void to_bf16(bf16* dst, const float* src,
+                                        int rows, int tid) {
+  constexpr int CH = D / 4;
+  for (int i = tid; i < rows * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(src + r * (D + 4) + c);
+    *reinterpret_cast<uint2*>(dst + r * (D + 8) + c) =
+        make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+  }
+}
+
+// the bf16 rows the products read of a staged tile: an f32 tile is
+// converted into `conv` by all threads (the caller then waits at a
+// barrier), a bf16 tile is read where it landed
+template <typename T, int D, int NT>
+__device__ __forceinline__ const bf16* as_bf16(const T* tile, bf16* conv,
+                                               int rows, int tid) {
+  if constexpr (Pad<T, D>::kConvert) {
+    to_bf16<D, NT>(conv, tile, rows, tid);
+    return conv;
+  } else {
+    return tile;
   }
 }
 
@@ -276,21 +308,26 @@ struct FwdArgs {
 
 template <typename T, int D, int NW, int STAGES>
 struct FwdSmem {
-  static constexpr int SK = Pad<T, D>::R, SV = Pad<T, D>::V, BQ = NW * 16;
-  static constexpr int Q = BQ * SK * sizeof(T);
-  static constexpr int K = kBK * SK * sizeof(T);
-  static constexpr int V = kBK * SV * sizeof(T);
-  static constexpr int STAGE = K + V + kBK * 4;
-  static constexpr int BYTES = Q + STAGES * STAGE;
+  using P = Pad<T, D>;
+  static constexpr int BQ = NW * 16;
+  // the q tile as staged, then (f32) the converted K and V tiles
+  static constexpr int A =
+      cmax(BQ * P::R * sizeof(T), P::conv(2 * kBK));
+  static constexpr int TILE = kBK * P::R * sizeof(T);
+  static constexpr int STAGE = 2 * TILE + kBK * 4;       // k, v, bias
+  static constexpr int BYTES = A + STAGES * STAGE;
 };
 
 template <typename T, int D, int NW, int STAGES>
 __global__ void __launch_bounds__(NW * 32) attn_fwd(FwdArgs a) {
   using L = FwdSmem<T, D, NW, STAGES>;
-  constexpr int NT = NW * 32, SK = L::SK, SV = L::SV;
+  using P = Pad<T, D>;
+  constexpr int NT = NW * 32, SR = P::R, SB = P::B;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
-  unsigned char* ring = smem + L::Q;
+  bf16* cK = reinterpret_cast<bf16*>(smem);
+  bf16* cV = cK + kBK * SB;
+  unsigned char* ring = smem + L::A;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -305,20 +342,20 @@ __global__ void __launch_bounds__(NW * 32) attn_fwd(FwdArgs a) {
     return reinterpret_cast<T*>(ring + s * L::STAGE);
   };
   auto tile_v = [&](int s) {
-    return reinterpret_cast<T*>(ring + s * L::STAGE + L::K);
+    return reinterpret_cast<T*>(ring + s * L::STAGE + L::TILE);
   };
   auto tile_b = [&](int s) {
-    return reinterpret_cast<float*>(ring + s * L::STAGE + L::K + L::V);
+    return reinterpret_cast<float*>(ring + s * L::STAGE + 2 * L::TILE);
   };
   auto issue = [&](int tile) {
     const int s = tile % STAGES, k0 = tile * kBK;
-    stage_async<T, D, SK, NT>(tile_k(s), kb, a.sk[2], k0, kBK, a.Lk, tid);
-    stage_async<T, D, SV, NT>(tile_v(s), vb, a.sv[2], k0, kBK, a.Lk, tid);
-    if (biasb) stage_vec_async<NT>(tile_b(s), biasb, k0, kBK, a.Lk, tid);
+    stage_async<T, D, SR, NT, kBK>(tile_k(s), kb, a.sk[2], k0, a.Lk, tid);
+    stage_async<T, D, SR, NT, kBK>(tile_v(s), vb, a.sv[2], k0, a.Lk, tid);
+    if (biasb) stage_vec_async<NT, kBK>(tile_b(s), biasb, k0, a.Lk, tid);
   };
 
   // group 0: the q tile and key tile 0; then one group a key tile
-  stage_async<T, D, SK, NT>(sQ, qb, a.sq[2], q0, L::BQ, a.Lq, tid);
+  stage_async<T, D, SR, NT, L::BQ>(sQ, qb, a.sq[2], q0, a.Lq, tid);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_tiles) issue(s);
@@ -339,11 +376,17 @@ __global__ void __launch_bounds__(NW * 32) attn_fwd(FwdArgs a) {
                                                // tile it - 1 is consumed
     if (it + STAGES - 1 < n_tiles) issue(it + STAGES - 1);
     cp_async_commit();
-    if (it == 0) load_afrag<D, SK>(qa, sQ + warp * 16 * SK, g, t);
+    if (it == 0) {
+      load_afrag<D, SR>(qa, sQ + warp * 16 * SR, g, t);
+      if constexpr (P::kConvert) __syncthreads();   // cK overwrites sQ
+    }
     const int s = it % STAGES;
+    const bf16* kt = as_bf16<T, D, NT>(tile_k(s), cK, kBK, tid);
+    const bf16* vt = as_bf16<T, D, NT>(tile_v(s), cV, kBK, tid);
+    if constexpr (P::kConvert) __syncthreads();
 
     float sc[kBK / 8][4];
-    mma_abt<D, kBK, SK>(sc, qa, tile_k(s), g, t);
+    mma_abt<D, kBK, SB>(sc, qa, kt, g, t);
     bias_scores<kBK>(sc, biasb ? tile_b(s) : nullptr, it * kBK, a.Lk,
                      a.scale, t);
 
@@ -375,7 +418,7 @@ __global__ void __launch_bounds__(NW * 32) attn_fwd(FwdArgs a) {
       l[0] += sc[j][0] + sc[j][1];
       l[1] += sc[j][2] + sc[j][3];
     }
-    mma_pb<kBK, D, SV>(o, sc, tile_v(s), lane);
+    mma_pb<kBK, D, SB>(o, sc, vt, lane);
   }
 
   const float inv0 = 1.f / quad_sum(l[0]), inv1 = 1.f / quad_sum(l[1]);
@@ -402,7 +445,7 @@ struct BwdArgs {
   const void *q, *k, *v, *o, *dout;
   const float* bias;       // (B, Lk) or null
   const float* stats;      // (2, B, H, Lq) from the forward
-  float* delta;            // (B, H, Lq) scratch, launch 1 -> launch 2
+  float* delta;            // (B, H, Lq): launch 1 writes, launch 2 reads
   void *dq, *dk, *dv;
   float* dbias_part;       // (B, H, Lk) or null
   long long sq[3], sk[3], sv[3], so[3], sd[3], sdq[3], sdk[3], sdv[3];
@@ -410,46 +453,117 @@ struct BwdArgs {
   float scale;
 };
 
+// rows [r0, r0 + ROWS) of a matrix (row stride ld) into bf16 shared rows
+// with row stride SB, rounded; rows at or past L are zero. Plain loads,
+// once per block before its streamed loop
+template <typename T, int D, int SB, int NT, int ROWS>
+__device__ __forceinline__ void load_rows_bf16(bf16* dst, const T* src,
+                                               long long ld, int r0, int L,
+                                               int tid) {
+  constexpr int CH = D / 8;
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < L) val = Io<T>::load8(src + (r0 + r) * ld + c);
+    *reinterpret_cast<uint4*>(dst + r * SB + c) = val;
+  }
+}
+
+// A fragments of a warp's 16 rows [r0, r0 + 16) read straight from global
+// memory (row stride ld elements; rows at or past L are zero), rounded to
+// bf16: read once per block, before the streamed loop
+template <int D, typename T>
+__device__ __forceinline__ void load_afrag_global(uint32_t a[D / 16][4],
+                                                  const T* base,
+                                                  long long ld, int r0,
+                                                  int L, int g, int t) {
+  const int ra = r0 + g, rb = ra + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    const float2 z = make_float2(0.f, 0.f);
+    const float2 x0 = ra < L ? Io<T>::load2(base + ra * ld + c) : z;
+    const float2 x1 = rb < L ? Io<T>::load2(base + rb * ld + c) : z;
+    const float2 x2 = ra < L ? Io<T>::load2(base + ra * ld + c + 8) : z;
+    const float2 x3 = rb < L ? Io<T>::load2(base + rb * ld + c + 8) : z;
+    a[kk][0] = pack_bf16(x0.x, x0.y);
+    a[kk][1] = pack_bf16(x1.x, x1.y);
+    a[kk][2] = pack_bf16(x2.x, x2.y);
+    a[kk][3] = pack_bf16(x3.x, x3.y);
+  }
+}
+
+// launch 1: delta = rowsum(dout * out) in f32 from the inputs as given, a
+// quad of threads a query row (thread t takes columns 8j + 2t and 8j + 2t
+// + 1, then the quad's parts are summed)
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads) attn_bwd_delta(BwdArgs a) {
+  const int tid = threadIdx.x, t = tid & 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row = blockIdx.x * (kBwdThreads / 4) + (tid >> 2);
+  float s = 0.f;
+  if (row < a.Lq) {
+    const T* x = static_cast<const T*>(a.dout) + b * a.sd[0] +
+                 h * a.sd[1] + row * a.sd[2];
+    const T* y = static_cast<const T*>(a.o) + b * a.so[0] + h * a.so[1] +
+                 row * a.so[2];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      const float2 u = Io<T>::load2(x + c), w = Io<T>::load2(y + c);
+      s += u.x * w.x + u.y * w.y;
+    }
+  }
+  s = quad_sum(s);
+  if (row < a.Lq && t == 0)
+    a.delta[((size_t)b * a.H + h) * a.Lq + row] = s;
+}
+
+// Shared memory of the backward's block roles; the launch gives every
+// block the larger of the two
 template <typename T, int D>
 struct DqSmem {
-  static constexpr int S = Pad<T, D>::R;
-  static constexpr int Q = 64 * S * sizeof(T);          // q, then dout
-  static constexpr int TILE = kBK * S * sizeof(T);
-  static constexpr int STAGE = 2 * TILE + kBK * 4;      // k, v, bias
-  static constexpr int BYTES = 2 * Q + kDqStages * STAGE;
+  using P = Pad<T, D>;
+  static constexpr int CONV = P::conv(2 * kBQ2);        // k, v (f32 only)
+  static constexpr int TILE = kBQ2 * P::R * sizeof(T);
+  static constexpr int STAGE = 2 * TILE + kBQ2 * 4;     // k, v, bias
+  static constexpr int BYTES = CONV + kDqStages * STAGE;
 };
 
 template <typename T, int D>
 struct DkdvSmem {
-  static constexpr int S = Pad<T, D>::R;
-  static constexpr int KV = kBK * S * sizeof(T);        // k, then v
-  static constexpr int TILE = kBQ2 * S * sizeof(T);
-  static constexpr int STAGE = 2 * TILE + 3 * kBQ2 * 4; // q, dout, stats
-  static constexpr int BYTES = 2 * KV + kDkdvStages * STAGE;
+  using P = Pad<T, D>;
+  static constexpr int CONV = P::conv(2 * kBQ2);        // q, dout
+  static constexpr int KEYS = kBwdRows * P::B * 2;      // the block's k
+  static constexpr int TILE = kBQ2 * P::R * sizeof(T);
+  // q, dout; max, 1/sum, delta
+  static constexpr int STAGE = 2 * TILE + 3 * kBQ2 * 4;
+  static constexpr int BYTES = CONV + KEYS + kDkdvStages * STAGE;
 };
 
-// launch 1: dq, and delta for launch 2
+// role 1: dq for 64 query rows (16 a warp), sweeping the keys in tiles of
+// kBQ2 through a ring of kDqStages
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads) attn_bwd_dq(BwdArgs a) {
+__device__ __forceinline__ void bwd_dq(const BwdArgs& a, int q0,
+                                       unsigned char* smem) {
   using L = DqSmem<T, D>;
-  constexpr int NT = kBwdThreads, S = L::S, BQ = 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sDo = reinterpret_cast<T*>(smem + L::Q);
-  unsigned char* ring = smem + 2 * L::Q;
+  using P = Pad<T, D>;
+  constexpr int NT = kBwdThreads, SR = P::R, SB = P::B, BK = kBQ2;
+  bf16* cK = reinterpret_cast<bf16*>(smem);
+  bf16* cV = cK + BK * SB;
+  unsigned char* ring = smem + L::CONV;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int b = blockIdx.z, h = blockIdx.y;
   const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
   const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
   const T* vb = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
-  const T* obp = static_cast<const T*>(a.o) + b * a.so[0] + h * a.so[1];
   const T* db = static_cast<const T*>(a.dout) + b * a.sd[0] + h * a.sd[1];
   const float* biasb = a.bias ? a.bias + (size_t)b * a.Lk : nullptr;
   const size_t rows = (size_t)gridDim.z * a.H * a.Lq;
   const size_t bh = ((size_t)b * a.H + h) * a.Lq;
-  const int n_tiles = (a.Lk + kBK - 1) / kBK;
+  const int n_tiles = (a.Lk + BK - 1) / BK;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
 
   auto tile_k = [&](int s) {
@@ -462,74 +576,56 @@ __global__ void __launch_bounds__(kBwdThreads) attn_bwd_dq(BwdArgs a) {
     return reinterpret_cast<float*>(ring + s * L::STAGE + 2 * L::TILE);
   };
   auto issue = [&](int tile) {
-    const int s = tile % kDqStages, k0 = tile * kBK;
-    stage_async<T, D, S, NT>(tile_k(s), kb, a.sk[2], k0, kBK, a.Lk, tid);
-    stage_async<T, D, S, NT>(tile_v(s), vb, a.sv[2], k0, kBK, a.Lk, tid);
-    if (biasb) stage_vec_async<NT>(tile_b(s), biasb, k0, kBK, a.Lk, tid);
+    const int s = tile % kDqStages, k0 = tile * BK;
+    stage_async<T, D, SR, NT, BK>(tile_k(s), kb, a.sk[2], k0, a.Lk, tid);
+    stage_async<T, D, SR, NT, BK>(tile_v(s), vb, a.sv[2], k0, a.Lk, tid);
+    if (biasb) stage_vec_async<NT, BK>(tile_b(s), biasb, k0, a.Lk, tid);
   };
-
-  stage_async<T, D, S, NT>(sQ, qb, a.sq[2], q0, BQ, a.Lq, tid);
-  stage_async<T, D, S, NT>(sDo, db, a.sd[2], q0, BQ, a.Lq, tid);
 #pragma unroll
   for (int s = 0; s < kDqStages - 1; ++s) {
     if (s < n_tiles) issue(s);
     cp_async_commit();
   }
 
-  // while those land: the forward's row statistics (a query past Lq gets
-  // p = exp(x - inf) * 0 = 0) and delta = rowsum(dout * out) in f32 from
-  // the inputs as given
-  float m[2], inv[2], delta[2] = {0.f, 0.f};
+  // while those land: q and dout as A fragments, the forward's row
+  // statistics (a query past Lq gets p = exp(x - inf) * 0 = 0) and delta
+  // from launch 1
+  uint32_t qa[D / 16][4], da[D / 16][4];
+  load_afrag_global<D>(qa, qb, a.sq[2], q0 + warp * 16, a.Lq, g, t);
+  load_afrag_global<D>(da, db, a.sd[2], q0 + warp * 16, a.Lq, g, t);
+  float m[2], inv[2], delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r ? r1 : r0;
-    m[r] = row < a.Lq ? a.stats[bh + row] : INFINITY;
-    inv[r] = row < a.Lq ? a.stats[rows + bh + row] : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (r0 < a.Lq) {
-      const float2 x = Io<T>::load2(db + r0 * a.sd[2] + c);
-      const float2 y = Io<T>::load2(obp + r0 * a.so[2] + c);
-      delta[0] += x.x * y.x + x.y * y.y;
-    }
-    if (r1 < a.Lq) {
-      const float2 x = Io<T>::load2(db + r1 * a.sd[2] + c);
-      const float2 y = Io<T>::load2(obp + r1 * a.so[2] + c);
-      delta[1] += x.x * y.x + x.y * y.y;
-    }
-  }
-  delta[0] = quad_sum(delta[0]);
-  delta[1] = quad_sum(delta[1]);
-  if (t == 0) {
-    if (r0 < a.Lq) a.delta[bh + r0] = delta[0];
-    if (r1 < a.Lq) a.delta[bh + r1] = delta[1];
+    const bool in = row < a.Lq;
+    m[r] = in ? a.stats[bh + row] : INFINITY;
+    inv[r] = in ? a.stats[rows + bh + row] : 0.f;
+    delta[r] = in ? a.delta[bh + row] : 0.f;
   }
 
-  uint32_t qa[D / 16][4], da[D / 16][4];
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<kDqStages - 2>();
-    __syncthreads();
+    cp_async_wait<kDqStages - 2>();            // tile `it` has landed
+    __syncthreads();                           // ... for every thread, and
+                                               // tile it - 1 is consumed
     if (it + kDqStages - 1 < n_tiles) issue(it + kDqStages - 1);
     cp_async_commit();
-    if (it == 0) {
-      load_afrag<D, S>(qa, sQ + warp * 16 * S, g, t);
-      load_afrag<D, S>(da, sDo + warp * 16 * S, g, t);
-    }
     const int s = it % kDqStages;
-    float sc[kBK / 8][4], dp[kBK / 8][4];
-    mma_abt<D, kBK, S>(sc, qa, tile_k(s), g, t);
-    bias_scores<kBK>(sc, biasb ? tile_b(s) : nullptr, it * kBK, a.Lk,
-                     a.scale, t);
-    mma_abt<D, kBK, S>(dp, da, tile_v(s), g, t);
+    const bf16* kt = as_bf16<T, D, NT>(tile_k(s), cK, BK, tid);
+    const bf16* vt = as_bf16<T, D, NT>(tile_v(s), cV, BK, tid);
+    if constexpr (P::kConvert) __syncthreads();
+
+    float sc[BK / 8][4], dp[BK / 8][4];
+    mma_abt<D, BK, SB>(sc, qa, kt, g, t);
+    bias_scores<BK>(sc, biasb ? tile_b(s) : nullptr, it * BK, a.Lk,
+                    a.scale, t);
+    mma_abt<D, BK, SB>(dp, da, vt, g, t);
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
@@ -537,7 +633,7 @@ __global__ void __launch_bounds__(kBwdThreads) attn_bwd_dq(BwdArgs a) {
         sc[j][e] = p * (dp[j][e] - delta[r]) * a.scale;   // ds * scale
       }
     }
-    mma_pb<kBK, D, S>(acc, sc, tile_k(s), lane);
+    mma_pb<BK, D, SB>(acc, sc, kt, lane);
   }
 
   T* dqb = static_cast<T*>(a.dq) + b * a.sdq[0] + h * a.sdq[1];
@@ -551,27 +647,63 @@ __global__ void __launch_bounds__(kBwdThreads) attn_bwd_dq(BwdArgs a) {
   }
 }
 
-// launch 2: dk, dv and the per-head partial sums of the bias gradient
+// role 2: dk, dv and the per-head partial sums of the bias gradient for 64
+// keys (16 a warp), sweeping the queries in tiles of kBQ2 through a ring of
+// kDkdvStages
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads) attn_bwd_dkdv(BwdArgs a) {
+__device__ __forceinline__ void bwd_dkdv(const BwdArgs& a, int k0,
+                                         unsigned char* smem) {
   using L = DkdvSmem<T, D>;
-  constexpr int NT = kBwdThreads, S = L::S;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = reinterpret_cast<T*>(smem + L::KV);
-  unsigned char* ring = smem + 2 * L::KV;
+  using P = Pad<T, D>;
+  constexpr int NT = kBwdThreads, SR = P::R, SB = P::B, BQ = kBQ2;
+  bf16* cQ = reinterpret_cast<bf16*>(smem);
+  bf16* cDo = cQ + BQ * SB;
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::CONV);
+  unsigned char* ring = smem + L::CONV + L::KEYS;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBK;
+  const int b = blockIdx.z, h = blockIdx.y;
   const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
   const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
   const T* vb = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
   const T* db = static_cast<const T*>(a.dout) + b * a.sd[0] + h * a.sd[1];
   const size_t rows = (size_t)gridDim.z * a.H * a.Lq;
   const size_t bh = ((size_t)b * a.H + h) * a.Lq;
-  const int n_tiles = (a.Lq + kBQ2 - 1) / kBQ2;
+  const int n_tiles = (a.Lq + BQ - 1) / BQ;
   const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;   // this thread's keys
+
+  auto tile_q = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * L::STAGE);
+  };
+  auto tile_do = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * L::STAGE + L::TILE);
+  };
+  auto tile_stat = [&](int s) {        // max, 1/sum, delta: BQ each
+    return reinterpret_cast<float*>(ring + s * L::STAGE + 2 * L::TILE);
+  };
+  auto issue = [&](int tile) {
+    const int s = tile % kDkdvStages, q0 = tile * BQ;
+    stage_async<T, D, SR, NT, BQ>(tile_q(s), qb, a.sq[2], q0, a.Lq, tid);
+    stage_async<T, D, SR, NT, BQ>(tile_do(s), db, a.sd[2], q0, a.Lq, tid);
+    float* st = tile_stat(s);
+    stage_vec_async<NT, BQ>(st, a.stats + bh, q0, a.Lq, tid);
+    stage_vec_async<NT, BQ>(st + BQ, a.stats + rows + bh, q0, a.Lq, tid);
+    stage_vec_async<NT, BQ>(st + 2 * BQ, a.delta + bh, q0, a.Lq, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < kDkdvStages - 1; ++s) {
+    if (s < n_tiles) issue(s);
+    cp_async_commit();
+  }
+
+  // while those land: the block's k as bf16 rows (its A fragments are
+  // built from them for each tile, which keeps the role within the
+  // registers that three blocks an SM leave), v as A fragments, and this
+  // thread's key bias
+  load_rows_bf16<T, D, SB, NT, kBwdRows>(sK, kb, a.sk[2], k0, a.Lk, tid);
+  uint32_t va[D / 16][4];
+  load_afrag_global<D>(va, vb, a.sv[2], k0 + warp * 16, a.Lk, g, t);
   float kbias[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -581,35 +713,6 @@ __global__ void __launch_bounds__(kBwdThreads) attn_bwd_dkdv(BwdArgs a) {
                    : -INFINITY;
   }
 
-  auto tile_q = [&](int s) {
-    return reinterpret_cast<T*>(ring + s * L::STAGE);
-  };
-  auto tile_do = [&](int s) {
-    return reinterpret_cast<T*>(ring + s * L::STAGE + L::TILE);
-  };
-  auto tile_stat = [&](int s) {        // max, 1/sum, delta: kBQ2 each
-    return reinterpret_cast<float*>(ring + s * L::STAGE + 2 * L::TILE);
-  };
-  auto issue = [&](int tile) {
-    const int s = tile % kDkdvStages, q0 = tile * kBQ2;
-    stage_async<T, D, S, NT>(tile_q(s), qb, a.sq[2], q0, kBQ2, a.Lq, tid);
-    stage_async<T, D, S, NT>(tile_do(s), db, a.sd[2], q0, kBQ2, a.Lq, tid);
-    float* st = tile_stat(s);
-    stage_vec_async<NT>(st, a.stats + bh, q0, kBQ2, a.Lq, tid);
-    stage_vec_async<NT>(st + kBQ2, a.stats + rows + bh, q0, kBQ2, a.Lq,
-                        tid);
-    stage_vec_async<NT>(st + 2 * kBQ2, a.delta + bh, q0, kBQ2, a.Lq, tid);
-  };
-
-  stage_async<T, D, S, NT>(sK, kb, a.sk[2], k0, kBK, a.Lk, tid);
-  stage_async<T, D, S, NT>(sV, vb, a.sv[2], k0, kBK, a.Lk, tid);
-#pragma unroll
-  for (int s = 0; s < kDkdvStages - 1; ++s) {
-    if (s < n_tiles) issue(s);
-    cp_async_commit();
-  }
-
-  uint32_t ka[D / 16][4], va[D / 16][4];
   float dkacc[D / 8][4], dvacc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -623,35 +726,45 @@ __global__ void __launch_bounds__(kBwdThreads) attn_bwd_dkdv(BwdArgs a) {
     __syncthreads();
     if (it + kDkdvStages - 1 < n_tiles) issue(it + kDkdvStages - 1);
     cp_async_commit();
-    if (it == 0) {
-      load_afrag<D, S>(ka, sK + warp * 16 * S, g, t);
-      load_afrag<D, S>(va, sV + warp * 16 * S, g, t);
-    }
-    const int s = it % kDkdvStages, q0 = it * kBQ2;
+    const int s = it % kDkdvStages, q0 = it * BQ;
     const float* sM = tile_stat(s);
-    const float* sInv = sM + kBQ2;
-    const float* sDelta = sM + 2 * kBQ2;
+    const float* sInv = sM + BQ;
+    const float* sDelta = sM + 2 * BQ;
+    const bf16* qt = as_bf16<T, D, NT>(tile_q(s), cQ, BQ, tid);
+    const bf16* dt = as_bf16<T, D, NT>(tile_do(s), cDo, BQ, tid);
+    if constexpr (P::kConvert) __syncthreads();
 
     // p^T and dp^T for this warp's 16 keys and the tile's queries
-    float st[kBQ2 / 8][4], dpt[kBQ2 / 8][4];
-    mma_abt<D, kBQ2, S>(st, ka, tile_q(s), g, t);
-    mma_abt<D, kBQ2, S>(dpt, va, tile_do(s), g, t);
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    {
+      uint32_t ka[D / 16][4];
+      load_afrag<D, SB>(ka, sK + warp * 16 * SB, g, t);
+      mma_abt<D, BQ, SB>(st, ka, qt, g, t);
+    }
+    mma_abt<D, BQ, SB>(dpt, va, dt, g, t);
 #pragma unroll
-    for (int j = 0; j < kBQ2 / 8; ++j) {
+    for (int j = 0; j < BQ / 8; ++j) {
+      // the statistics of this thread's two query columns, as pairs
+      const int c0 = j * 8 + 2 * t;
+      const float2 mj = *reinterpret_cast<const float2*>(sM + c0);
+      const float2 ij = *reinterpret_cast<const float2*>(sInv + c0);
+      const float2 dj = *reinterpret_cast<const float2*>(sDelta + c0);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = j * 8 + 2 * t + (e & 1);
+        const int r = e >> 1, odd = e & 1;
         const float x = __fadd_rn(__fmul_rn(st[j][e], a.scale), kbias[r]);
-        const float p =
-            q0 + col < a.Lq ? __expf(x - sM[col]) * sInv[col] : 0.f;
-        const float ds = p * (dpt[j][e] - sDelta[col]);
+        const float p = q0 + c0 + odd < a.Lq
+                            ? __expf(x - (odd ? mj.y : mj.x)) *
+                                  (odd ? ij.y : ij.x)
+                            : 0.f;
+        const float ds = p * (dpt[j][e] - (odd ? dj.y : dj.x));
         dbias[r] += ds;
         st[j][e] = p;
         dpt[j][e] = ds * a.scale;
       }
     }
-    mma_pb<kBQ2, D, S>(dvacc, st, tile_do(s), lane);
-    mma_pb<kBQ2, D, S>(dkacc, dpt, tile_q(s), lane);
+    mma_pb<BQ, D, SB>(dvacc, st, dt, lane);
+    mma_pb<BQ, D, SB>(dkacc, dpt, qt, lane);
   }
 
   T* dkb = static_cast<T*>(a.dk) + b * a.sdk[0] + h * a.sdk[1];
@@ -679,7 +792,21 @@ __global__ void __launch_bounds__(kBwdThreads) attn_bwd_dkdv(BwdArgs a) {
   }
 }
 
-// launch 3: d(key_bias) = the sum over heads of launch 2's partials
+// launch 2: blocks [0, nq) of x are dq blocks, the rest dk/dv blocks
+// at most 168 registers, so that three blocks (and their 62 KB of shared
+// memory each at f32, D 64) fit an SM and both roles' 384 blocks at the
+// CLIP shape run in one wave
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 3)
+    attn_bwd(BwdArgs a, int nq) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if ((int)blockIdx.x < nq)
+    bwd_dq<T, D>(a, blockIdx.x * kBwdRows, smem);
+  else
+    bwd_dkdv<T, D>(a, (blockIdx.x - nq) * kBwdRows, smem);
+}
+
+// launch 3: d(key_bias) = the sum over heads of the dk/dv blocks' partials
 __global__ void attn_bwd_dbias(const float* __restrict__ part,
                                float* __restrict__ dbias, int B, int H,
                                int Lk) {
@@ -704,7 +831,7 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// bq: query rows a block (64 or 32); stages: ring depth (2 or 3)
+// bq: query rows a block (32, 64 or 128); stages: ring depth (2 or 3)
 template <typename T, int D>
 cudaError_t forward(const FwdArgs& a, int B, int bq, int stages,
                     cudaStream_t st) {
@@ -712,28 +839,28 @@ cudaError_t forward(const FwdArgs& a, int B, int bq, int stages,
   if (bq == 64 && stages == 3) return launch_fwd<T, D, 4, 3>(a, B, st);
   if (bq == 32 && stages == 2) return launch_fwd<T, D, 2, 2>(a, B, st);
   if (bq == 32 && stages == 3) return launch_fwd<T, D, 2, 3>(a, B, st);
+  if (bq == 128 && stages == 2) return launch_fwd<T, D, 8, 2>(a, B, st);
+  if (bq == 128 && stages == 3) return launch_fwd<T, D, 8, 3>(a, B, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
 cudaError_t backward(const BwdArgs& a, int B, float* dbias,
                      cudaStream_t st) {
-  constexpr int dq_bytes = DqSmem<T, D>::BYTES;
-  constexpr int dkdv_bytes = DkdvSmem<T, D>::BYTES;
-  static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      attn_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_bytes);
-  static const cudaError_t attr_dkdv = cudaFuncSetAttribute(
-      attn_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkdv_bytes);
-  if (attr_dq != cudaSuccess) return attr_dq;
-  if (attr_dkdv != cudaSuccess) return attr_dkdv;
-  attn_bwd_dq<T, D><<<dim3((a.Lq + 63) / 64, a.H, B), kBwdThreads,
-                      dq_bytes, st>>>(a);
+  constexpr int bytes =
+      cmax(DqSmem<T, D>::BYTES, DkdvSmem<T, D>::BYTES);
+  // once per kernel and process
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_bwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  const int nq = (a.Lq + kBwdRows - 1) / kBwdRows;
+  const int nk = (a.Lk + kBwdRows - 1) / kBwdRows;
+  attn_bwd_delta<T, D><<<dim3((a.Lq + kBwdThreads / 4 - 1) /
+                                  (kBwdThreads / 4), a.H, B),
+                         kBwdThreads, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv<T, D><<<dim3((a.Lk + kBK - 1) / kBK, a.H, B), kBwdThreads,
-                        dkdv_bytes, st>>>(a);
+  attn_bwd<T, D><<<dim3(nq + nk, a.H, B), kBwdThreads, bytes, st>>>(a, nq);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dbias) return err;
   const int n = B * a.Lk;
@@ -780,16 +907,16 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
 }
 
 // dq, dk, dv in the inputs' dtype; stats: the forward's (2, B, H, Lq);
-// delta: (B, H, Lq) f32 scratch; dbias (B, Lk) f32, or null when no bias
-// gradient is asked for; dbias_part: (B, H, Lk) f32 scratch (null with
-// dbias). strides: the B, H and L strides of q, k, v, out, dout, dq, dk
-// and dv, 24 values.
+// delta: (B, H, Lq) f32 scratch; dbias (B, Lk) f32, or null when no bias gradient is asked for;
+// dbias_part: (B, H, Lk) f32 scratch (null with dbias). strides: the B, H
+// and L strides of q, k, v, out, dout, dq, dk and dv, 24 values.
 extern "C" int attention_backward(
     const void* q, const void* k, const void* v, const void* bias,
     const void* o, const void* dout, const void* stats, void* delta,
     void* dq, void* dk, void* dv, void* dbias, void* dbias_part,
-    const long long* strides, int B, int H, int Lq, int Lk, int D, int f32,
-    float scale, void* stream) {
+    const long long* strides,
+    int B, int H, int Lq, int Lk, int D, int f32, float scale,
+    void* stream) {
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.bias = static_cast<const float*>(bias);

@@ -197,17 +197,20 @@ def _attn_plan(b, h, lq, lk, d, dtype):
     fills the H100's 132 SMs once, else 32; stages, the depth of the ring
     of 64-key tiles of K and V, is 2 for f32 operands (so that two blocks
     fit an SM's shared memory) and 3 for bf16. smem_bytes is the block's
-    dynamic shared memory as ``FwdSmem`` in the source computes it: the q
-    tile and each stage's K and V tiles, rows padded to D + 8 elements (V
-    in f32 to D + 4), and 64 bias values a stage. grid is (query tiles,
-    heads, batch). Lk does not change it."""
+    dynamic shared memory as ``FwdSmem`` in the source computes it: the
+    staged q tile, or in f32 the K and V tiles converted to bf16 (rows of
+    D + 8) if larger, then each stage's K and V tiles as staged (rows
+    padded to D + 4 in f32, D + 8 in bf16) and 64 bias values. grid is
+    (query tiles, heads, batch). Lk does not change it."""
     del lk
     f32 = dtype == torch.float32
     item = 4 if f32 else 2
-    sk, sv = d + 8, (d + 4 if f32 else d + 8)
+    row = d + 4 if f32 else d + 8
+    conv = 2 * _BK * (d + 8) * 2 if f32 else 0
     bq = 64 if -(-lq // 64) * h * b >= _H100_SMS else 32
     stages = 2 if f32 else 3
-    smem = bq * sk * item + stages * (_BK * (sk + sv) * item + _BK * 4)
+    smem = max(bq * row * item, conv) + stages * (2 * _BK * row * item
+                                                  + _BK * 4)
     return bq, stages, smem, (-(-lq // bq), h, b)
 
 
@@ -300,7 +303,7 @@ def attention_bwd(q, k, v, key_bias, out, g, sm_scale=None,
     if key_bias is not None and bias_grad:
         db = torch.empty((b, lk), dtype=torch.float32, device=q.device)
         part = torch.empty((b, h, lk), dtype=torch.float32, device=q.device)
-    # delta = rowsum(g * out), passed from the dq launch to the dk/dv one
+    # delta = rowsum(g * out), from the first launch to the second
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _build.check(_bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias),
