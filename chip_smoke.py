@@ -11,12 +11,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the HICO-DET eval step and training step give it (the attention
-   backward through its autograd.Function, all four gradients; the cache
-   scoring also launch by launch, twice for bit-identity, and at ragged
-   and V-COCO shapes), and time the kernel, the plain version and one
-   library call computing the same function, each by CUDA events around
-   back-to-back calls and by the device time of the call's kernels alone
-   (torch.profiler);
+   backward through its autograd.Function, all four gradients; the CLIP
+   attention on the (B, H, L, D) views of (B, L, H, D) buffers that its
+   call site passes, bit for bit against contiguous copies, two backward
+   calls bit for bit, the backward on the forward's saved statistics; one
+   CLIP block's attention under the profiler, which must make no copy of
+   a (B, L, E)-sized tensor; the cache scoring also launch by launch,
+   twice for bit-identity, and at ragged and V-COCO shapes), and time the
+   kernel, the plain version and one library call computing the same
+   function, each by CUDA events around back-to-back calls and by the
+   device time of the call's kernels alone (torch.profiler);
 4. check the port's eval step on a small input against the same step on
    the CPU;
 5. drive the full-width eval step (DETR-R50 and DINO-R50 in bf16, the
@@ -511,7 +515,10 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
                                            compute_dtype=bf16),
            lambda: torch.autograd.grad(o16, (q16g, k16g, v16g), do16,
                                        retain_graph=True),
-           nbytes(q, k, v, out, dout, q, k, v), (5 * t_mm, t_exp), iters=50)
+           # inputs q, k, v, out, dout and the forward's statistics;
+           # outputs dq, dk, dv
+           nbytes(q, k, v, out, dout, stats, q, k, v), (5 * t_mm, t_exp),
+           iters=50)
     check_clip_block_layout(params, cfg, b)
 
     # K3: the H cache branch of the training step, 117 classes

@@ -10,14 +10,14 @@
 // one dtype T: bf16 (the DETR encoder) or f32 (the CLIP tower in training).
 // Each is read or written through its own B, H and L strides (elements; D
 // has stride 1 and every row start is 16-byte aligned, which the wrapper
-// checks), so the CLIP tower's transposed views of (B, L, H, D)
+// checks), so the CLIP tower's (B, H, L, D) views of its (B, L, H, D)
 // projections are read in place and out, dq, dk and dv are written in the
-// caller's (B, L, H, D) layout: no layout copy around a call. key_bias
-// (B, Lk) f32 or null. Every product takes bf16 operands (round to nearest
-// even) with f32 accumulation, as the TPU's Precision.DEFAULT does for both
-// dtypes. An f32 operand lands in shared memory as f32 and is rounded where
-// its mma fragment is built from shared memory. Scores, row max and sum,
-// delta and ds stay in f32; p is rounded to bf16 before P V and before
+// caller's layout: no layout copy around a call. key_bias (B, Lk) f32 or
+// null. Every product takes bf16 operands (round to nearest even) with f32
+// accumulation, as the TPU's Precision.DEFAULT does for both dtypes. An f32
+// tile lands in shared memory as f32 and is converted to bf16 rows once per
+// block (to_bf16); a bf16 tile is read where it lands. Scores, row max and
+// sum, delta and ds stay in f32; p is rounded to bf16 before P V and before
 // p^T dout, and ds * scale before ds k and ds^T q, as in the TPU kernels.
 //
 // Bound on this card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16, 132 SMs) at
@@ -25,25 +25,22 @@
 // forward moves q, k, v and out, 9.7 MB (2.89 us), against two products of
 // 0.24 GFLOP (0.48 us) and 1.86 M exponentials (0.45 us); the backward
 // moves q, k, v, out, dout, dq, dk and dv, 19.4 MB (5.78 us), against five
-// products (1.2 us). Both are bound by bytes, so the design is about the
-// memory path: every tile streams into shared memory by cp.async 16-byte
-// copies into a ring of stages, the next tiles in flight while the
-// current one's products run, and no warp waits on a global load inside a
-// loop. The products stay on mma.sync m16n8k16: at this size wgmma's
-// 64-row tiles would buy nothing the bytes do not already bound.
+// products (1.2 us). Both are bound by bytes, but at this size what holds
+// them back is latency: a head's 197 rows make few blocks, and each block
+// walks its tiles in series. So every tile streams into shared memory by
+// 16-byte cp.async copies through a ring of stages (the next tiles in
+// flight while the current one's products run; no warp waits on a global
+// load inside a loop), and the blocks are sized so that as many as
+// possible are resident. The products stay on mma.sync m16n8k16.
 //
-// Forward (attn_fwd): one block per (BQ-query tile, head, batch), BQ = 16
-// rows a warp, 2 or 4 warps; the wrapper's _attn_plan picks BQ and the
-// ring depth. The block streams 64-key tiles of K and V (and the bias)
-// through a ring of 2 or 3 stages. Rows are padded in shared memory so
-// that the fragment loads are free of bank conflicts: f32 K rows are read
-// as float2 pairs along D (row stride D + 8 floats), f32 V rows as single
-// floats down the keys (row stride D + 4); bf16 rows (stride D + 8) are
-// read by 4-byte loads and ldmatrix.trans. An online softmax is kept in
-// registers and p is normalised after the P V product, so the (Lq, Lk)
-// scores never leave the SM. Shared memory at the CLIP shape (f32, BQ 64,
-// 2 stages): 18,432 B of q + 2 x 36,096 B of ring = 90,624 B, two blocks
-// an SM.
+// Forward (attn_fwd): one block per (BQ-query tile, head, batch), 16 rows a
+// warp; the wrapper's _attn_plan picks BQ (32, 64 or 128) and the ring
+// depth (2 or 3). The block streams 64-key tiles of K and V (and the bias)
+// through the ring, keeps an online softmax in registers and normalises p
+// after the P V product, so the (Lq, Lk) scores never leave the SM. Shared
+// memory at the CLIP shape (f32, BQ 64, 2 stages): 18,432 B for the q tile,
+// then the converted K and V tiles, and 2 x 35,072 B of ring, 88,576 B in
+// all: two blocks an SM, so the 192 blocks run in one wave.
 //
 // Why the statistics are saved. The TPU kernel saves no logsumexp and its
 // backward recomputes the row max and sum, one extra reduction against an
@@ -52,18 +49,23 @@
 // the CLIP shape (0.02 us of bytes), so the forward writes them.
 //
 // Backward: two launches on one stream (three with a key-bias gradient),
-// each the only writer of what it writes:
-//  1. attn_bwd_dq, one block per (64-query tile, head, batch): delta =
-//     rowsum(dout * out) in f32 from the inputs as given (written to a
-//     scratch for launch 2), then one sweep over 64-key tiles of K and V
-//     streamed through a 2-stage ring: p = exp(s - max) / sum from the
-//     saved statistics, dp = dout v^T, ds = p (dp - delta), dq += ds k.
-//  2. attn_bwd_dkdv, one block per (64-key tile, head, batch): k and v
-//     once, then 32-query tiles of q and dout with their max, 1/sum and
-//     delta through a 3-stage ring: dv += p^T dout, dk += ds^T q, and the
-//     per-head partial sums of ds for the bias gradient.
-//  3. attn_bwd_dbias sums those partials over the heads (only when the
-//     bias gradient is asked for).
+// each block the only writer of what it writes:
+//  1. attn_bwd_delta: delta = rowsum(dout * out) in f32 from the inputs as
+//     given, into a (B, H, Lq) scratch.
+//  2. attn_bwd, with two block roles side by side in one grid:
+//     - dq blocks (64 queries, a head, an image; bwd_dq): q and dout as A
+//       fragments, then 32-key tiles of K and V through a 3-stage ring:
+//       p = exp(s - max) / sum from the saved statistics, dp = dout v^T,
+//       ds = p (dp - delta), dq += ds k;
+//     - dk/dv blocks (64 keys; bwd_dkdv): k as bf16 rows and v as A
+//       fragments, then 32-query tiles of q and dout with their max, 1/sum
+//       and delta through a 3-stage ring: dv += p^T dout, dk += ds^T q, and
+//       the per-head partial sums of ds for the bias gradient.
+//     The block's shared memory is the larger role's, 71,808 B at f32 and
+//     D 64, and the kernel is held to 168 registers, so that three blocks
+//     fit an SM and the 384 blocks at the CLIP shape run in one wave.
+//  3. attn_bwd_dbias sums the partials over the heads (only when the bias
+//     gradient is asked for).
 // The TPU kernel carries dk, dv and d(bias) from one sequential grid step
 // to the next; blocks here run in parallel and in no order, so each sum
 // has one owner and a fixed order instead: no atomics, and two calls give
@@ -78,8 +80,8 @@ using namespace hoigen;
 namespace {
 
 constexpr int kBK = 64;           // keys per tile of the forward
-constexpr int kBwdRows = 64;      // query rows of a dq block, keys of a dk/dv
-constexpr int kBwdThreads = 128;  // ... 16 a warp
+constexpr int kBwdRows = 64;      // queries of a dq block, keys of a dk/dv
+constexpr int kBwdThreads = 128;  // ... block, 16 a warp
 constexpr int kBQ2 = 32;          // keys (dq) or queries (dk/dv) a tile
 constexpr int kDqStages = 3;      // the backward's rings
 constexpr int kDkdvStages = 3;
