@@ -34,7 +34,7 @@
 // possible are resident. The products stay on mma.sync m16n8k16.
 //
 // Forward (attn_fwd): one block per (BQ-query tile, head, batch), 16 rows a
-// warp; the wrapper's _attn_plan picks BQ (32, 64 or 128) and the ring
+// warp; the wrapper's _attn_plan picks BQ (32 or 64) and the ring
 // depth (2 or 3). The block streams 64-key tiles of K and V (and the bias)
 // through the ring, keeps an online softmax in registers and normalises p
 // after the P V product, so the (Lq, Lk) scores never leave the SM. Shared
@@ -833,7 +833,7 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// bq: query rows a block (32, 64 or 128); stages: ring depth (2 or 3)
+// bq: query rows a block (32 or 64); stages: ring depth (2 or 3)
 template <typename T, int D>
 cudaError_t forward(const FwdArgs& a, int B, int bq, int stages,
                     cudaStream_t st) {
@@ -841,8 +841,6 @@ cudaError_t forward(const FwdArgs& a, int B, int bq, int stages,
   if (bq == 64 && stages == 3) return launch_fwd<T, D, 4, 3>(a, B, st);
   if (bq == 32 && stages == 2) return launch_fwd<T, D, 2, 2>(a, B, st);
   if (bq == 32 && stages == 3) return launch_fwd<T, D, 2, 3>(a, B, st);
-  if (bq == 128 && stages == 2) return launch_fwd<T, D, 8, 2>(a, B, st);
-  if (bq == 128 && stages == 3) return launch_fwd<T, D, 8, 3>(a, B, st);
   return cudaErrorInvalidValue;
 }
 
@@ -909,9 +907,10 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
 }
 
 // dq, dk, dv in the inputs' dtype; stats: the forward's (2, B, H, Lq);
-// delta: (B, H, Lq) f32 scratch; dbias (B, Lk) f32, or null when no bias gradient is asked for;
-// dbias_part: (B, H, Lk) f32 scratch (null with dbias). strides: the B, H
-// and L strides of q, k, v, out, dout, dq, dk and dv, 24 values.
+// delta: (B, H, Lq) f32 scratch; dbias (B, Lk) f32, or null when no bias
+// gradient is asked for; dbias_part: (B, H, Lk) f32 scratch (null with
+// dbias). strides: the B, H and L strides of q, k, v, out, dout, dq, dk
+// and dv, 24 values.
 extern "C" int attention_backward(
     const void* q, const void* k, const void* v, const void* bias,
     const void* o, const void* dout, const void* stats, void* delta,

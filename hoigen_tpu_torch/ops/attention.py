@@ -193,16 +193,17 @@ _SMEM_LIMIT = 232448
 @functools.lru_cache(maxsize=None)
 def _attn_plan(b, h, lq, lk, d, dtype):
     """K1's launch: ``(bq, stages, smem_bytes, grid)``. bq, the query rows
-    of a block (16 a warp; the kernel also takes 128), is 64 where the grid
-    of 64-row blocks still fills the H100's 132 SMs once, else 32; stages,
+    of a block (16 a warp), is 64 where the grid of 64-row blocks still
+    fills the H100's 132 SMs once, else 32; stages,
     the depth of the ring of 64-key tiles of K and V, is 2 for f32 operands
     (so that two blocks fit an SM's shared memory) and 3 for bf16
-    (``tools/sweep_attention.py`` times every choice on the card). smem_bytes is the block's
-    dynamic shared memory as ``FwdSmem`` in the source computes it: the
-    staged q tile, or in f32 the K and V tiles converted to bf16 (rows of
-    D + 8) if larger, then each stage's K and V tiles as staged (rows
-    padded to D + 4 in f32, D + 8 in bf16) and 64 bias values. grid is
-    (query tiles, heads, batch). Lk does not change it."""
+    (``tools/sweep_attention.py`` times every choice on the card).
+    smem_bytes is the block's dynamic shared memory as ``FwdSmem`` in the
+    source computes it: the staged q tile, or in f32 the K and V tiles
+    converted to bf16 (rows of D + 8) if larger, then each stage's K and V
+    tiles as staged (rows padded to D + 4 in f32, D + 8 in bf16) and 64
+    bias values. grid is (query tiles, heads, batch). Lk does not change
+    it."""
     del lk
     f32 = dtype == torch.float32
     item = 4 if f32 else 2
