@@ -124,6 +124,36 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_report(log_text):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    ``-Xptxas -v`` output of one build; kernels by their demangled-enough
+    name (the function and its template arguments)."""
+    import re
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            # _ZN <len><id>... I <args> E: the last id before the
+            # template arguments, and the integer ones among them
+            mangled, pos, ident = m.group(1), 3, m.group(1)
+            while pos < len(mangled) and mangled[pos].isdigit():
+                n = re.match(r"\d+", mangled[pos:]).group(0)
+                ident = mangled[pos + len(n):pos + len(n) + int(n)]
+                pos += len(n) + int(n)
+            args = re.findall(r"L[ib](\d+)E", mangled[pos:].split("EEv")[0])
+            name = ident + (f"<{', '.join(args)}>" if args else "")
+            out[name] = [None, None, None]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 # ----------------------------------------------------------------- kernels
 def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
     """Phase 3: each kernel against its plain version at the main path's
@@ -132,11 +162,8 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
     import torch.nn.functional as F
 
     from hoigen_tpu_torch.models.detr.model import downsample_mask
-    from hoigen_tpu_torch.models.detr.resnet import _bottleneck_nhwc
     from hoigen_tpu_torch.ops.attention import attention_reference, \
         fused_attention
-    from hoigen_tpu_torch.ops.fused_resnet import \
-        bottleneck_chain_reference, fused_bottleneck_chain
     from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
         fused_cache_logits
     from hoigen_tpu_torch.ops.pixels import pad_mask_from_sizes
@@ -223,43 +250,8 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
             / (EXP_PER_SM_PER_CLOCK * n_sm * clock_hz)),
            iters=50)
 
-    # K2: layer1 blocks 1-2 of the DETR backbone, (B, H/4, W/4, 256) bf16,
-    # on the main path's conv weights. Their random frozen BN is the
-    # identity (scale 1, bias 0), which would hide a swapped or dropped
-    # epilogue operand and a missing SAME-padding zero (relu(0 * s + 0) is
-    # 0 anyway), so the check draws per-channel scales around 1 and
-    # nonzero biases from the seed
-    def varied_bn(conv):
-        n = conv["scale"].shape[0]
-        return {"w": conv["w"],
-                "scale": (1 + 0.1 * torch.randn(n, generator=gen)).to(dev),
-                "bias": (0.1 * torch.randn(n, generator=gen)).to(dev)}
-
-    blocks = [{n: varied_bn(c) for n, c in bp.items()}
-              for bp in params["detr"]["backbone"]["layers"][0][1:]]
-    x = torch.relu(torch.randn((b, hi // 4, wi // 4, 256), generator=gen)
-                   ).to(dev, bf16)
-    flops = 0
-    for bp in blocks:
-        m = bp["conv1"]["w"].shape[0]
-        flops += 2 * x.numel() // 256 * (256 * m + 9 * m * m + m * 256)
-
-    def unfused():
-        y = x
-        for bp in blocks:
-            y = _bottleneck_nhwc(y, bp, 1)
-        return y
-
-    # the kernel reads its weights in bf16 and its scales and biases in f32
-    weight_bytes = sum(c["w"].numel() * 2 + nbytes(c["scale"], c["bias"])
-                       for bp in blocks for c in bp.values())
-    record("bottleneck_chain_fwd", "hoigen_tpu_torch/csrc/fused_resnet.cu",
-           "hoigen_tpu/ops/fused_resnet.py:47",
-           fused_bottleneck_chain(x, blocks),
-           bottleneck_chain_reference(x, blocks),
-           lambda: fused_bottleneck_chain(x, blocks),
-           lambda: bottleneck_chain_reference(x, blocks), unfused,
-           nbytes(x, x) + weight_bytes, (flops / BF16_TC_FLOPS,), iters=20)
+    # K2: the four ResNet-50 layer tails of the DETR backbone
+    check_chain_kernels(params, b, hi, wi, gen, check, record)
 
     # K3: the H cache branch, (B, 450, 512) f32 pair features against the
     # (1200, 512) cache keys and (1200, 600) label matrix
@@ -291,6 +283,105 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
     check_training_kernels(train_model, train_cfg, b, n_sm, clock_hz, check,
                            record)
     return records
+
+
+def check_chain_kernels(params, b, hi, wi, gen, check, record):
+    """Phase 3, K2: the stride-1 tail of each ResNet-50 layer of the DETR
+    backbone on the main path's conv weights, at the plane the 800x1344
+    bucket gives it (layer1, (B, 200, 336, 256), is the main path's fused
+    launch; layers 2-4 run the layered route), each timed against its
+    plain version and against the unfused cuDNN blocks; then the layer1
+    tail at a ragged plane, a width that takes the padding route (C 200,
+    M 50, padded to the fused route's 256 and 64) and one that pads into
+    the layered route (C 96, M 24, 3 blocks), and two calls bit for bit.
+    The random frozen BN is the identity (scale 1, bias 0), which would
+    hide a swapped or dropped epilogue operand and a missing SAME-padding
+    zero (relu(0 * s + 0) is 0 anyway), so every check draws per-channel
+    scales around 1 and nonzero biases from the seed."""
+    import torch
+
+    from hoigen_tpu_torch.models.detr.resnet import _bottleneck_nhwc
+    from hoigen_tpu_torch.ops.fused_resnet import _chain_plan, \
+        bottleneck_chain_reference, fused_bottleneck_chain
+
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def varied_bn(conv):
+        n = conv["scale"].shape[0]
+        return {"w": conv["w"],
+                "scale": (1 + 0.1 * torch.randn(n, generator=gen)).to(dev),
+                "bias": (0.1 * torch.randn(n, generator=gen)).to(dev)}
+
+    def seeded(c, m, k):
+        """k blocks of widths c and m with weights drawn from the seed."""
+        def conv(o, i, ks):
+            w = torch.randn((o, i, ks, ks), generator=gen)
+            return varied_bn({"w": (w * math.sqrt(2 / (i * ks * ks)))
+                              .to(dev), "scale": torch.ones(o)})
+        return [{"conv1": conv(m, c, 1), "conv2": conv(m, m, 3),
+                 "conv3": conv(c, m, 1)} for _ in range(k)]
+
+    def inputs(shape):
+        return torch.relu(torch.randn(shape, generator=gen)).to(dev, bf16)
+
+    layers = params["detr"]["backbone"]["layers"]
+    for li, name in enumerate(("bottleneck_chain_fwd",
+                               "bottleneck_chain_fwd_layer2",
+                               "bottleneck_chain_fwd_layer3",
+                               "bottleneck_chain_fwd_layer4")):
+        blocks = [{n: varied_bn(c) for n, c in bp.items()}
+                  for bp in layers[li][1:]]
+        c = blocks[0]["conv3"]["w"].shape[0]
+        m = blocks[0]["conv1"]["w"].shape[0]
+        x = inputs((b, hi // 4 >> li, wi // 4 >> li, c))
+        plan = _chain_plan(*x.shape[:3], c, m, len(blocks))
+        log(f"kernel {name}: {len(blocks)} blocks, C {c}, M {m}, plane "
+            f"{tuple(x.shape[:3])}: {plan.route} route, {plan}")
+        if (plan.route == "fused") != (li == 0):
+            fail(f"{name}: {plan.route} route")
+        flops = 2 * x.numel() // c * len(blocks) * (2 * c * m + 9 * m * m)
+
+        def unfused(x=x, blocks=blocks):
+            for bp in blocks:
+                x = _bottleneck_nhwc(x, bp, 1)
+            return x
+
+        # the kernels read the weights in bf16, scales and biases in f32
+        weight_bytes = sum(cv["w"].numel() * 2 + nbytes(cv["scale"],
+                                                        cv["bias"])
+                           for bp in blocks for cv in bp.values())
+        record(name, "hoigen_tpu_torch/csrc/fused_resnet.cu",
+               "hoigen_tpu/ops/fused_resnet.py:47",
+               fused_bottleneck_chain(x, blocks),
+               bottleneck_chain_reference(x, blocks),
+               lambda x=x, blocks=blocks: fused_bottleneck_chain(x, blocks),
+               lambda x=x, blocks=blocks: bottleneck_chain_reference(x,
+                                                                     blocks),
+               unfused, nbytes(x, x) + weight_bytes,
+               (flops / BF16_TC_FLOPS,), iters=20)
+        if li == 0:
+            same_bits("bottleneck_chain_fwd two calls",
+                      (fused_bottleneck_chain(x, blocks),),
+                      (fused_bottleneck_chain(x, blocks),))
+            main_blocks = blocks
+
+    cases = {"bottleneck_chain_ragged": (inputs((2, 37, 45, 256)),
+                                         main_blocks, "fused"),
+             "bottleneck_chain_padded_fused": (inputs((2, 37, 45, 200)),
+                                               seeded(200, 50, 2), "fused"),
+             "bottleneck_chain_padded_layered": (inputs((2, 29, 19, 96)),
+                                                 seeded(96, 24, 3),
+                                                 "layered")}
+    for name, (x, blocks, route) in cases.items():
+        c, m = x.shape[-1], blocks[0]["conv1"]["w"].shape[0]
+        plan = _chain_plan(*x.shape[:3], c, m, len(blocks))
+        if plan.route != route:
+            fail(f"{name}: {plan.route} route")
+        got = fused_bottleneck_chain(x, blocks)
+        if got.shape != x.shape:
+            fail(f"{name}: output {tuple(got.shape)}")
+        check(f"{name} ({plan.route}, C {c} -> {plan.c}, M {m} -> "
+              f"{plan.m})", got, bottleneck_chain_reference(x, blocks))
 
 
 def check_cache_kernel(x, w, b, lab, s, check):
@@ -499,6 +590,22 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     got = torch.autograd.grad(fused_attention(*ins), ins, gc)
     check("attention_bwd_bf16_cross", got, attention_bwd_reference(
         qc, kc, vc, bc, attention_reference(qc, kc, vc, bc), gc))
+    # ... and at head dim 48, which the wrapper runs at 64 with zero
+    # columns, f32 with a bias
+    q48, g48 = (torch.randn((2, 3, 70, 48), generator=gen).cuda()
+                for _ in range(2))
+    k48, v48 = (torch.randn((2, 3, 150, 48), generator=gen).cuda()
+                for _ in range(2))
+    b48 = (0.5 * torch.randn((2, 150), generator=gen)).cuda()
+    with torch.no_grad():
+        check("attention_fwd_d48", fused_attention(q48, k48, v48, b48),
+              attention_reference(q48, k48, v48, b48, compute_dtype=bf16))
+    ins = [t.clone().requires_grad_() for t in (q48, k48, v48, b48)]
+    got = torch.autograd.grad(fused_attention(*ins), ins, g48)
+    check("attention_bwd_d48", got, attention_bwd_reference(
+        q48, k48, v48, b48, attention_reference(q48, k48, v48, b48,
+                                                compute_dtype=bf16),
+        g48, compute_dtype=bf16))
     # ... and without a bias, as the CLIP tower calls it, where it is timed
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     got = torch.autograd.grad(fused_attention(*ins, None), ins, dout)
@@ -844,10 +951,12 @@ def main():
     _build.build_all()
     log(f"build: {len(_build.SOURCES)} kernel sources in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, report in sorted(_build.build_logs.items()):
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    ptxas = {name: ptxas_report(report)
+             for name, report in sorted(_build.build_logs.items())}
+    for name, kernels in ptxas.items():
+        for kernel, (regs, spill_st, spill_ld) in kernels.items():
+            log(f"  {name}: {kernel}: {regs} registers, {spill_st} bytes "
+                f"spill stores, {spill_ld} bytes spill loads")
 
     # the full-width model and feed of the eval main path (bench.py's
     # setup), and of the training path (the flagship: f32 towers, 117
@@ -994,7 +1103,11 @@ def main():
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        # records off the main path (K2's layer2-4 tails) launched 0 times
+        rec["launches"] = launches.get(rec["name"], 0)
+        if rec["source"].endswith("fused_resnet.cu"):
+            # {kernel: (registers, spill store bytes, spill load bytes)}
+            rec["ptxas"] = ptxas.get("fused_resnet", {})
     line = {"kernels": records, "to_port": [],
             "eval_step": eval_step,
             "train_step": {"batch": args.batch, "steps": len(tms),

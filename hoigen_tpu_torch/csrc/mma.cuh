@@ -78,6 +78,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
 }
 
+// Four 8x8 b16 matrices from the shared-memory address `s`: lanes
+// 8i..8i+7 give the row addresses of matrix i (16 bytes each), and r[i] is
+// this lane's fragment of matrix i (row lane / 4, elements 2 (lane % 4)
+// and the next). Rows r..r+15 at k..k+15 of a row-major A, with lane
+// addresses row r + (lane & 15), column k + (lane >> 4) * 8, give the mma
+// A fragment a[0..3].
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], unsigned s) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
 // Four 8x8 b16 matrices from shared memory, transposed: lanes 8i..8i+7
 // give the row addresses of matrix i, and r[i] is this lane's fragment of
 // matrix i's transpose. For B stored (k, n) row-major, rows k..k+15 at

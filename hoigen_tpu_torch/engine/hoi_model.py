@@ -9,6 +9,7 @@ instead), plus a dict of frozen buffers. The training step updates the
 parameters in place. Entry points take ``device=None``, meaning CUDA, and
 raise when no CUDA device is present; tests pass ``device="cpu"``.
 """
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -70,6 +71,23 @@ def init_hoi_model(gen, cfg: HOIModelConfig, caches, clip_params=None,
     upt_params, buffers = init_upt_params(gen, cfg.upt, caches, clip_params)
     params = {"upt": upt_params, "detr": detr_params, "dino": dino_params}
     return mark_trainable(to_device(params, dev)), to_device(buffers, dev)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Float32 products in full f32 on the card while the block runs: TF32
+    off for cuBLAS matmuls and for cuDNN convolutions (whose default is
+    TF32, as the f32 DETR and DINO towers would otherwise run). The
+    caller's settings are restored on the way out."""
+    cudnn = torch.backends.cudnn
+    saved = (torch.get_float32_matmul_precision(), cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("highest")
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        cudnn.allow_tf32 = saved[1]
 
 
 def _as_tensor(x, device):
@@ -232,10 +250,11 @@ def make_train_step(cfg: HOIModelConfig, optimizer, device=None):
 
     def step(params, buffers, batch, generator=None):
         batch = {k: _as_tensor(v, dev) for k, v in batch.items()}
-        optimizer.zero_grad()
-        loss, aux = train_loss(params, buffers, batch, cfg, generator)
-        loss.backward()
-        optimizer.step()
+        with full_f32():
+            optimizer.zero_grad()
+            loss, aux = train_loss(params, buffers, batch, cfg, generator)
+            loss.backward()
+            optimizer.step()
         return {"loss": loss.detach(), "n_p": aux["n_p"].detach()}
 
     return step
@@ -253,7 +272,8 @@ def make_eval_step(cfg: HOIModelConfig, device=None):
     @torch.inference_mode()
     def step(params, buffers, batch):
         batch = {k: _as_tensor(v, dev) for k, v in batch.items()}
-        out = _forward(params, buffers, batch, cfg)
+        with full_f32():
+            out = _forward(params, buffers, batch, cfg)
         return {"detection_scores": out["detection_scores_cmp"],
                 "detection_verbs": out["detection_verbs"],
                 "boxes": out["boxes"], "objects": out["objects"],

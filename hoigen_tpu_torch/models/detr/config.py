@@ -22,8 +22,11 @@ class DETRConfig:
     # residual layers whose stride-1 tail blocks run the fused
     # bottleneck-chain kernel (ops/fused_resnet.py); taken only on CUDA with
     # a bf16 tower and no remat (detr/model.py::detr_forward). The CUDA
-    # kernel covers layer1's tail (2 blocks, C=256, M=64).
+    # kernels take every layer's tail: layer1's (2 blocks, C=256, M=64) by
+    # the fused route, the others by the layered one.
     fused_resnet_tail: tuple = (0,)
-    # rematerialisation of backbone blocks in the backward; the port has no
-    # training path yet, and the flag only turns the fused tail off
+    # rematerialisation of backbone blocks in the backward. The training
+    # step keeps DETR frozen and runs no backward through it, so the flag
+    # only turns the fused tail off (the offline DETR finetune would give
+    # it its use)
     remat_backbone: bool = False

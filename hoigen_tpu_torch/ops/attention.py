@@ -28,6 +28,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -142,12 +143,32 @@ def _check(name, q, k, v, key_bias):
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in (32, 64):
-        raise ValueError(f"{name}: head dim {d} not in (32, 64)")
+    if d > 64:
+        raise ValueError(f"{name}: head dim {d} > 64")
     if key_bias is not None and (key_bias.shape != (b, lk)
                                  or not key_bias.is_cuda):
         raise ValueError(f"{name}: key_bias must be a CUDA ({b}, {lk}) "
                          f"tensor, got {tuple(key_bias.shape)}")
+
+
+def _head_dim(d):
+    """The head dim the kernels run a head dim ``d`` <= 64 at: 32 or 64."""
+    return 32 if d <= 32 else 64
+
+
+def _pad_heads(*tensors):
+    """Each (B, H, L, D) tensor zero-padded along D to :func:`_head_dim`.
+    Exact for both kernels: zero columns of q and k add nothing to the
+    scores, and those of v, out and the incoming gradient give zero
+    columns of out, dq, dk and dv, which :func:`_unpad` drops."""
+    d = tensors[0].shape[-1]
+    return [F.pad(t, (0, _head_dim(d) - d)) for t in tensors]
+
+
+def _unpad(t, like):
+    """The first D columns of the padded result t, in ``like``'s shape and
+    layout (:func:`_layout_like`)."""
+    return _empty(like.shape, like, t.dtype).copy_(t[..., :like.shape[-1]])
 
 
 def _readable(t):
@@ -236,11 +257,12 @@ def _bwd_launcher():
 
 def attention_forward(q, k, v, key_bias=None, sm_scale=None,
                       return_stats=False, plan=None):
-    """K1 on CUDA tensors (bf16 or f32 q/k/v, head dim 32 or 64; f32
-    operands are rounded to bf16 for the products), the plain version on
-    CPU tensors. The output is in q's layout (:func:`_layout_like`); with
-    ``return_stats`` the row max and 1/sum, (2, B, H, Lq) f32, come with
-    it. ``plan`` overrides :func:`_attn_plan`'s (bq, stages). No gradient:
+    """K1 on CUDA tensors (bf16 or f32 q/k/v, head dim up to 64, run at 32
+    or 64 with zero columns (:func:`_pad_heads`); f32 operands are rounded
+    to bf16 for the products), the plain version on CPU tensors. The
+    output is in q's layout (:func:`_layout_like`); with ``return_stats``
+    the row max and 1/sum, (2, B, H, Lq) f32, come with it. ``plan``
+    overrides :func:`_attn_plan`'s (bq, stages). No gradient:
     :func:`fused_attention` is the differentiable entry point."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -250,6 +272,11 @@ def attention_forward(q, k, v, key_bias=None, sm_scale=None,
         out = _as_layout(out, q)
         return (out, stats) if return_stats else out
     _check("attention_forward", q, k, v, key_bias)
+    if _head_dim(q.shape[-1]) != q.shape[-1]:
+        out, stats = attention_forward(*_pad_heads(q, k, v), key_bias,
+                                       sm_scale, True, plan)
+        out = _unpad(out, q)
+        return (out, stats) if return_stats else out
     b, h, lq, d = q.shape
     lk = k.shape[2]
     out = _empty(q.shape, q)
@@ -285,6 +312,13 @@ def attention_bwd(q, k, v, key_bias, out, g, sm_scale=None,
         return (_as_layout(dq, q), _as_layout(dk, k), _as_layout(dv, v),
                 db if bias_grad else None)
     _check("attention_bwd", q, k, v, key_bias)
+    if _head_dim(q.shape[-1]) != q.shape[-1] and out.shape == q.shape \
+            and g.shape == q.shape:
+        grads = attention_bwd(*_pad_heads(q, k, v), key_bias,
+                              *_pad_heads(out, g), sm_scale, bias_grad,
+                              stats)
+        return (*(_unpad(t, like) for t, like in zip(grads, (q, k, v))),
+                grads[3])
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if out.shape != q.shape or g.shape != q.shape or out.dtype != q.dtype \
@@ -350,7 +384,7 @@ def fused_attention(q, k, v, key_bias=None, sm_scale=None):
     (B, H, Lq, D) in q.dtype and q's layout.
 
     Differentiable in q, k, v and key_bias. CUDA tensors need q/k/v of one
-    dtype, bf16 or f32, with D in {32, 64}; anything else raises.
+    dtype, bf16 or f32, with D <= 64; anything else raises.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

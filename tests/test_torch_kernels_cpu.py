@@ -23,9 +23,10 @@ from hoigen_tpu.ops.pallas_cache import \
     fused_cache_logits as j_fused_cache_logits
 
 from hoigen_tpu_torch.ops.attention import _attn_plan, _layout_like, \
-    attention_bwd, attention_bwd_reference, attention_forward, \
-    attention_reference, fused_attention
-from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
+    _pad_heads, _unpad, attention_bwd, attention_bwd_reference, \
+    attention_forward, attention_reference, fused_attention
+from hoigen_tpu_torch.ops.fused_resnet import _chain_plan, \
+    bottleneck_chain_reference, fused_bottleneck_chain, pad_chain
 from hoigen_tpu_torch.ops.pallas_cache import _gemm_plan, \
     fused_cache_logits, kernel_operands
 
@@ -265,6 +266,46 @@ def test_attention_keeps_the_callers_layout(with_bias):
         np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "blhd-views"])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+def test_attention_head_padding_is_exact(with_bias, layout):
+    """Head dims other than 32 and 64 (here 48) run on the card through
+    the kernels at 64 with zero columns (_pad_heads, then _unpad): the
+    plain forward and backward on the padded operands at the caller's
+    scale 1/sqrt(48), unpadded, equal them on the originals, out and all
+    four gradients, in the inputs' layout. f32 on both sides; only zero
+    terms join the sums, so 1e-6 of each output's scale."""
+    rng = np.random.default_rng(8)
+    b, h, lq, lk, d = 2, 3, 20, 27, 48
+
+    def make(l):
+        t = _t(rng.normal(size=(b, l, h, d)))
+        return t.transpose(1, 2) if layout == "blhd-views" \
+            else t.transpose(1, 2).contiguous()
+    q, g = make(lq), make(lq)
+    k, v = make(lk), make(lk)
+    bias = _t(0.5 * rng.normal(size=(b, lk))) if with_bias else None
+    sm = 1.0 / np.sqrt(d)
+    out = attention_reference(q, k, v, bias)
+    padded = _pad_heads(q, k, v)
+    assert padded[0].shape == (b, h, lq, 64)
+    got = _unpad(attention_reference(*padded, bias, sm_scale=sm), q)
+    assert got.shape == q.shape and got.stride() == q.stride()
+    want = attention_bwd_reference(q, k, v, bias, out, g)
+    grads = attention_bwd_reference(*padded, bias, *_pad_heads(out, g),
+                                    sm_scale=sm)
+    got_grads = [_unpad(t, like) for t, like in zip(grads, (q, k, v))]
+    for t, like in zip(got_grads, (q, k, v)):
+        assert t.stride() == like.stride()
+    for gv, wv in zip([got, *got_grads, grads[3]], [out, *want]):
+        if wv is None:
+            assert gv is None
+            continue
+        scale = wv.abs().max().item()
+        np.testing.assert_allclose(gv.numpy(), wv.numpy(),
+                                   atol=1e-6 * scale)
+
+
 @pytest.mark.parametrize("b,h,lq,lk,d,dtype",
                          [(4, 12, 197, 197, 64, torch.float32),
                           (4, 8, 1050, 1050, 32, torch.bfloat16),
@@ -304,22 +345,42 @@ def _to(blocks, lib):
             for bp in blocks]
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
-                                       ("bfloat16", 2 ** -6)])
-def test_bottleneck_chain_plain_matches_pallas_interpret(dtype, tol):
-    """K2 (ops/fused_resnet.py::_chain_kernel): 2 chained blocks on a
-    13 x 10 plane. 13 rows are not a multiple of the row tile (8), so the
-    TPU kernel's clamped halo windows and its edge-row masking both run;
-    the plain version zero-pads the whole plane instead. Nonzero BN biases
-    make a wrongly activated SAME padding visible. Tolerances are relative
-    to the output's scale: f32, 1e-4 for the reordered f32 sums of three
-    chained products per block; bf16 (m1, m2 and each block's output
-    rounded to bf16 at the same points on both sides), two bf16 ulps
-    (2**-6), for roundings that an f32 summation order can flip."""
+# (dtype, tolerance, blocks K, C, M, plane (H, W)); the first two cases
+# keep the ids they had when the test took one chain
+CHAIN_CASES = [
+    pytest.param("float32", 1e-4, 2, 128, 32, (13, 10), id="float32-0.0001"),
+    pytest.param("bfloat16", 2 ** -6, 2, 128, 32, (13, 10),
+                 id="bfloat16-0.015625"),
+    pytest.param("float32", 1e-4, 1, 64, 16, (9, 7), id="k1-c64-m16-f32"),
+    pytest.param("bfloat16", 2 ** -6, 1, 64, 16, (9, 8),
+                 id="k1-c64-m16-bf16"),
+    pytest.param("float32", 1e-4, 3, 64, 16, (11, 6), id="k3-c64-m16-f32"),
+    pytest.param("bfloat16", 2 ** -6, 3, 64, 16, (11, 6),
+                 id="k3-c64-m16-bf16"),
+    pytest.param("float32", 1e-4, 3, 128, 32, (5, 12),
+                 id="k3-c128-m32-short-f32"),
+]
+
+
+@pytest.mark.parametrize("dtype,tol,k,c,m,hw", CHAIN_CASES)
+def test_bottleneck_chain_plain_matches_pallas_interpret(dtype, tol, k, c, m,
+                                                         hw):
+    """K2 (ops/fused_resnet.py::_chain_kernel): chains of 1 to 3 blocks at
+    (C, M) of (128, 32) and (64, 16). 13, 9 and 11 rows are not multiples
+    of the row tile (8), so the TPU kernel's clamped halo windows and its
+    edge-row masking both run; 5 rows are fewer than one DMA window (8 +
+    2K), which the TPU kernel pads. The plain version zero-pads the whole
+    plane instead. Nonzero BN biases make a wrongly activated SAME padding
+    visible. In bf16 the TPU kernel bitcasts pairs of columns, so W is
+    even there. Tolerances are relative to the output's scale: f32, 1e-4 for
+    the reordered f32 sums of three chained products per block; bf16 (m1,
+    m2 and each block's output rounded to bf16 at the same points on both
+    sides), two bf16 ulps (2**-6), for roundings that an f32 summation
+    order can flip."""
     rng = np.random.default_rng(2)
-    b, h, w, c, m = 2, 13, 10, 128, 32
+    b, (h, w) = 2, hw
     x = np.maximum(rng.normal(size=(b, h, w, c)), 0).astype(np.float32)
-    blocks = _chain_blocks(rng, c, m, 2)
+    blocks = _chain_blocks(rng, c, m, k)
     want = np.asarray(j_fused_bottleneck_chain(
         jnp.asarray(x, getattr(jnp, dtype)), _to(blocks, "jax"),
         interpret=True), np.float32)
@@ -329,6 +390,84 @@ def test_bottleneck_chain_plain_matches_pallas_interpret(dtype, tol):
     scale = np.abs(want).max()
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol * scale,
                                rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,c,m", [(2, 200, 50), (3, 96, 24)],
+                         ids=["to-fused-widths", "to-layered-widths"])
+def test_bottleneck_chain_padding_is_exact(k, c, m, dtype):
+    """The CUDA wrapper zero-pads C and M to the kernels' channel step
+    (pad_chain, to the widths _chain_plan gives) and slices the output:
+    the plain version on the padded x and weights, sliced, equals it on
+    the originals. f32: the products gain only zero terms, so 1e-6 of the
+    scale covers another summation order; bf16: bit for bit, checked at
+    the same rounding points."""
+    rng = np.random.default_rng(5)
+    x = _t(np.maximum(rng.normal(size=(2, 7, 9, c)), 0),
+           getattr(torch, dtype))
+    blocks = _to(_chain_blocks(rng, c, m, k), "torch")
+    plan = _chain_plan(2, 7, 9, c, m, k)
+    assert (plan.c, plan.m) == (-(-c // 64) * 64, -(-m // 64) * 64)
+    xp, bp = pad_chain(x, blocks, plan.c, plan.m)
+    assert xp.shape == (2, 7, 9, plan.c)
+    assert bp[0]["conv2"]["w"].shape == (plan.m, plan.m, 3, 3)
+    got = bottleneck_chain_reference(xp, bp)
+    want = bottleneck_chain_reference(x, blocks)
+    assert not got[..., c:].any()
+    scale = want.float().abs().max().item()
+    np.testing.assert_allclose(got[..., :c].float().numpy(),
+                               want.float().numpy(),
+                               atol=1e-6 * scale if dtype == "float32" else 0)
+
+
+@pytest.mark.parametrize("b,h,w,c,m,k,route", [
+    (4, 200, 336, 256, 64, 2, "fused"),      # layer1 tail, the main path
+    (4, 100, 168, 512, 128, 3, "layered"),   # layer2 tail
+    (4, 50, 84, 1024, 256, 5, "layered"),    # layer3 tail
+    (4, 25, 42, 2048, 512, 2, "layered"),    # layer4 tail
+    (2, 37, 45, 256, 64, 2, "fused"),        # ragged plane
+    (2, 37, 45, 200, 50, 2, "fused"),        # padded widths
+    (1, 3, 250, 256, 64, 2, "fused"),        # a plane of one tile's rows
+    (2, 29, 19, 96, 24, 3, "layered")],
+    ids=["layer1", "layer2", "layer3", "layer4", "ragged", "padded",
+         "wide-strip", "padded-layered"])
+def test_chain_plan_covers_the_plane_and_fits(b, h, w, c, m, k, route):
+    """K2's launch (_chain_plan, as csrc/fused_resnet.cu computes its
+    shared memory): the route, a grid that covers the plane once, and
+    shared memory within the H100's 232,448 B a block, for the four
+    ResNet-50 layer tails at the 800x1344 bucket's planes and for ragged
+    and padded shapes; the fused route at every tile and ring depth it
+    takes."""
+    plan = _chain_plan(b, h, w, c, m, k)
+    assert plan.route == route
+    assert plan.c % 64 == 0 and plan.m % 64 == 0
+    assert c <= plan.c < c + 64 and m <= plan.m < m + 64
+    assert plan.smem <= 232448
+    if route == "layered":
+        rows = plan.tile[0]
+        assert plan.grid[0] * rows >= b * h * w > (plan.grid[0] - 1) * rows
+        assert plan.grid[1] * 64 == max(plan.c, plan.m)
+        return
+    th, tw = plan.tile
+    assert plan.grid[2] == b
+    assert plan.grid[0] * tw >= w > (plan.grid[0] - 1) * tw
+    assert plan.grid[1] * th >= h > (plan.grid[1] - 1) * th
+    # one warpgroup for each 64 pixels of the (TH+4) x (TW+4) region
+    assert plan.threads == -(-(th + 4) * (tw + 4) // 64) * 128
+    if (h, w) == (200, 336):
+        assert plan.tile == (8, 16) and plan.grid == (21, 25, 4)
+    for tile in ((8, 16), (16, 8)):
+        for stages in range(2, 9):
+            try:
+                alt = _chain_plan(b, h, w, c, m, k, tile, stages)
+            except ValueError:
+                assert stages > 5
+                continue
+            assert alt.smem <= 232448 and alt.tile == tile
+            # x's box in four chunks, m1 on it, m2 on the smaller region
+            r0, r1 = (tile[0] + 4) * (tile[1] + 4), (tile[0] + 2) * (
+                tile[1] + 2)
+            assert alt.smem >= 5 * r0 * 128 + r1 * 128 + stages * 8192
 
 
 # ------------------------------------------------------ K3 cache scoring

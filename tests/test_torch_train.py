@@ -474,3 +474,53 @@ def test_two_train_steps_after_an_eval_step(jax_model):
         np.testing.assert_array_equal(
             a.detach().numpy(),
             dict(partition.trainable_leaves(p2))[path].detach().numpy())
+
+
+def test_steps_run_in_full_f32_and_restore_the_flags(monkeypatch):
+    """The eval and training steps run with TF32 off for matmuls and for
+    cuDNN (the f32 towers' convolutions would otherwise run in TF32 on the
+    card), and leave the caller's settings as they found them."""
+    seen = []
+
+    def flags():
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32,
+                torch.get_float32_matmul_precision())
+
+    def forward(*args, **kwargs):
+        seen.append(flags())
+        return {k: torch.zeros(1) for k in (
+            "detection_scores_cmp", "detection_verbs", "boxes", "objects",
+            "pair_valid")}
+
+    def loss(*args, **kwargs):
+        seen.append(flags())
+        w = torch.ones(1, requires_grad=True)
+        return w.sum(), {"n_p": torch.ones(())}
+
+    class Optimizer:
+        def zero_grad(self):
+            seen.append(flags())
+
+        def step(self):
+            seen.append(flags())
+
+    monkeypatch.setattr(thm, "_forward", forward)
+    monkeypatch.setattr(thm, "train_loss", loss)
+    cudnn = torch.backends.cudnn.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        before = flags()
+        assert before[:2] == (True, True)
+        cfg = thm.HOIModelConfig()
+        thm.make_eval_step(cfg, device="cpu")({}, {}, {})
+        assert flags() == before
+        thm.make_train_step(cfg, Optimizer(), device="cpu")({}, {}, {})
+        assert flags() == before
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.set_float32_matmul_precision(precision)
+    assert len(seen) == 4
+    assert all(f == (False, False, "highest") for f in seen)
