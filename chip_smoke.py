@@ -33,7 +33,17 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    classes, one generated pair per image, the fused cache and CLIP's fused
    attention on, dropout on) through ``Trainer`` with the counters set to
    0 just before it, and check the launches, the loss, that every frozen
-   tensor is unchanged and that the trained ones moved.
+   tensor is unchanged and that the trained ones moved;
+7. run the HICO-DET evaluation from a dataset on disk to its mAP as the
+   CLI runs it (``DataFactory`` -> ``eval_batches``, tail padded -> the
+   eval step of phase 5 -> ``evaluate_hico``) on 18 random JPEGs of both
+   orientations written to a temporary directory, with the counters set
+   to 0 just before it; check the launches per batch, the buckets, the
+   AP vector and that no padded row reached the meter; time the whole
+   evaluation, the loader alone, the steps and the host AP, and a second
+   pass with every batch shape's first call behind it; then run the same
+   tree through phase 4's small configuration on the card and on the CPU
+   and compare the detections and the AP vectors.
 
 The last two lines of standard output are one JSON object of kernel
 numbers and one naming the device. Exits non-zero when no CUDA device is
@@ -527,6 +537,81 @@ def check_clip_block_layout(params, cfg, b):
         f"({len(copies)} smaller copy ops)")
 
 
+def check_wide_heads(b, length, gen, n_sm, clock_hz, check, record):
+    """Phase 3, K1 and K4 at head dims above 64, which no shipped config
+    reaches but the TPU kernels take: the CLIP call site's layout ((B, H,
+    L, D) views of (B, L, H, D) buffers) with H = 8 and L = 197, at D =
+    80, 128 and 256, in bf16 and f32. The forward's output and saved
+    statistics against the plain version's, all four gradients through
+    the autograd.Function with a key bias against the plain backward, and
+    K4 on the saved statistics against the plain backward on the same
+    statistics. D = 128 in f32 is timed beside SDPA on bf16 copies."""
+    import torch
+    import torch.nn.functional as F
+
+    from hoigen_tpu_torch.ops.attention import attention_bwd, \
+        attention_bwd_reference, attention_forward, attention_reference, \
+        fused_attention
+
+    bf16, heads = torch.bfloat16, 8
+    for d in (80, 128, 256):
+        for dtype in (torch.float32, bf16):
+            name = f"d{d}_{'f32' if dtype == torch.float32 else 'bf16'}"
+            q, k, v, dout = (torch.randn((b, length, heads, d), generator=gen)
+                             .cuda().to(dtype).transpose(1, 2)
+                             for _ in range(4))
+            kbias = (0.5 * torch.randn((b, length), generator=gen)).cuda()
+            kbias[:, -7:] = -1e9
+            cd = bf16 if dtype == torch.float32 else None
+            with torch.no_grad():
+                out, stats = attention_forward(q, k, v, kbias,
+                                               return_stats=True)
+                want, want_stats = attention_reference(
+                    q, k, v, kbias, compute_dtype=cd, return_stats=True)
+                check(f"attention_fwd_{name}", (out, stats[0], stats[1]),
+                      (want, want_stats[0], want_stats[1]))
+                check(f"attention_bwd_saved_stats_{name}",
+                      attention_bwd(q, k, v, kbias, out, dout, stats=stats),
+                      attention_bwd_reference(q, k, v, kbias, out, dout,
+                                              compute_dtype=cd, stats=stats))
+            ins = [t.clone().requires_grad_() for t in (q, k, v, kbias)]
+            got = torch.autograd.grad(fused_attention(*ins), ins, dout)
+            check(f"attention_bwd_{name}", got, attention_bwd_reference(
+                q, k, v, kbias, want, dout, compute_dtype=cd))
+
+    # D = 128, f32, no bias, as the CLIP tower would call it, timed
+    d = 128
+    q, k, v, dout = (torch.randn((b, length, heads, d), generator=gen)
+                     .cuda().transpose(1, 2) for _ in range(4))
+    n_scores = b * heads * length * length
+    t_exp = n_scores / (EXP_PER_SM_PER_CLOCK * n_sm * clock_hz)
+    t_mm = 2 * n_scores * d / BF16_TC_FLOPS
+    q16, k16, v16 = (t.contiguous().to(bf16) for t in (q, k, v))
+    out, stats = attention_forward(q, k, v, return_stats=True)
+    record("attention_fwd_d128", "hoigen_tpu_torch/csrc/attention.cu",
+           "hoigen_tpu/ops/attention.py:48", out,
+           attention_reference(q, k, v, compute_dtype=bf16),
+           lambda: fused_attention(q, k, v),
+           lambda: attention_reference(q, k, v, compute_dtype=bf16),
+           lambda: F.scaled_dot_product_attention(q16, k16, v16),
+           nbytes(q, k, v, out), (2 * t_mm, t_exp), iters=50)
+    q16g, k16g, v16g = (t.clone().requires_grad_() for t in (q16, k16, v16))
+    o16 = F.scaled_dot_product_attention(q16g, k16g, v16g)
+    do16 = dout.contiguous().to(bf16)
+    record("attention_bwd_d128", "hoigen_tpu_torch/csrc/attention.cu",
+           "hoigen_tpu/ops/attention.py:95",
+           attention_bwd(q, k, v, None, out, dout, stats=stats)[:3],
+           attention_bwd_reference(q, k, v, None, out, dout,
+                                   compute_dtype=bf16, stats=stats)[:3],
+           lambda: attention_bwd(q, k, v, None, out, dout, stats=stats),
+           lambda: attention_bwd_reference(q, k, v, None, out, dout,
+                                           compute_dtype=bf16),
+           lambda: torch.autograd.grad(o16, (q16g, k16g, v16g), do16,
+                                       retain_graph=True),
+           nbytes(q, k, v, out, dout, stats, q, k, v), (5 * t_mm, t_exp),
+           iters=50)
+
+
 def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     """Phase 3, the training step's kernels: K1 and K4 at the CLIP tower's
     shapes, (B, 12, 197, 64) f32 (K4 through the autograd.Function, so
@@ -627,6 +712,7 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
            nbytes(q, k, v, out, dout, stats, q, k, v), (5 * t_mm, t_exp),
            iters=50)
     check_clip_block_layout(params, cfg, b)
+    check_wide_heads(b, length, gen, n_sm, clock_hz, check, record)
 
     # K3: the H cache branch of the training step, 117 classes
     upt = params["upt"]
@@ -657,18 +743,18 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
 
 
 # --------------------------------------------------------------- eval step
-def spread_detection_heads(params, seed):
+def spread_detection_heads(params, seed, scale=30.0):
     """A random DETR's queries differ by under 1% after the decoder, so
     every query gets the same label and nearly the same box, NMS keeps one
     and no pair forms. Spread the box head's last layer, as the JAX
-    package's tiny dry run does (here by 30, which the bf16 tower's
+    package's tiny dry run does (by default by 30, which the bf16 tower's
     rounding needs), and favour class 0 (human), so that the head scores
     human-human pairs and the path runs non-trivially."""
     import numpy as np
     import torch
     last = params["detr"]["bbox_embed"][-1]
     noise = np.random.default_rng(seed).normal(0, 1.0, last["b"].shape)
-    last["w"] = last["w"] * 30.0
+    last["w"] = last["w"] * scale
     last["b"] = last["b"] + torch.as_tensor(noise, dtype=last["b"].dtype,
                                             device=last["b"].device)
     params["detr"]["class_embed"]["b"][0] += 10.0
@@ -809,6 +895,287 @@ def step_stats(times_s, batch):
     q1, median, q3 = (float(v) for v in np.percentile(ms, (25, 50, 75)))
     return (float(ms.mean()), median, q1, q3,
             batch * len(ms) / (ms.sum() / 1e3))
+
+
+# --------------------------------------------------- evaluation from disk
+# phase 7's tree: 12 landscape and 6 portrait JPEGs, so that at batch 4
+# one batch holds only portrait images and two mix both orientations
+EVAL_SIZES = ([(640, 427)] * 4 + [(427, 640)] * 4
+              + [(640, 427), (640, 427), (427, 640), (640, 427)] * 2
+              + [(640, 427)] * 2)
+# phase 7's small configuration: the transform sizes and buckets of the
+# port's CPU tests
+SMALL_TRANSFORM = dict(eval_min_side=48, max_side=80)
+SMALL_BUCKETS = ((56, 80), (80, 56), (80, 80))
+
+
+def hico_factories(root, run_cfg, clip_resolution, transform_kwargs=None):
+    """The test and training factories the CLI builds for HICO-DET."""
+    from hoigen_tpu_torch.data.factory import DataFactory
+    kw = dict(max_gt_pairs=run_cfg.max_gt_pairs,
+              host_clip_stream=run_cfg.host_clip_stream,
+              clip_resolution=clip_resolution,
+              transform_kwargs=transform_kwargs)
+    return (DataFactory("hicodet", "test2015", root, training=False, **kw),
+            DataFactory("hicodet", "train2015", root, training=True,
+                        seed=run_cfg.seed, **kw))
+
+
+def evaluate_from_disk(step, model, cfg, run_cfg, test, train):
+    """One HICO-DET evaluation as the CLI runs it: ``eval_batches`` (tail
+    padded) through ``step``, then ``evaluate_hico``. Returns (result,
+    [(outputs, batch)], {timings in s, padded shapes, per-row nonzero
+    scores of each step, detections appended to the meter})."""
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.cli.main_finetune import eval_batches
+    from hoigen_tpu_torch.engine import eval as E
+    from hoigen_tpu_torch.labels import HICO
+
+    info = {"step_s": [], "shapes": [], "row_nonzero": [], "meter": 0,
+            "wait_s": 0.0}
+
+    def timed_step(params, buffers, d):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(params, buffers, d)
+        torch.cuda.synchronize()
+        info["step_s"].append(time.perf_counter() - t)
+        info["shapes"].append(tuple(d["images"].shape[2:]))
+        info["row_nonzero"].append(
+            (out["detection_scores"] != 0).sum((1, 2)).tolist())
+        return out
+
+    runs = []
+
+    def timed(gen):
+        """The (outputs, batch) stream, with the time the consumer waits
+        for it (the loader and the steps) added up; kept for the caller."""
+        while True:
+            t = time.perf_counter()
+            item = next(gen, None)
+            info["wait_s"] += time.perf_counter() - t
+            if item is None:
+                return
+            runs.append(item)
+            yield item
+
+    class CountingMeter(E.DetectionAPMeter):
+        def append(self, scores, classes, labels):
+            info["meter"] += len(np.asarray(scores).reshape(-1))
+            super().append(scores, classes, labels)
+
+    meter, E.DetectionAPMeter = E.DetectionAPMeter, CountingMeter
+    try:
+        t0 = time.perf_counter()
+        result = E.evaluate_hico(
+            timed(eval_batches(timed_step, *model, test, run_cfg)),
+            test.dataset, run_cfg.num_classes, cfg.upt.proposals,
+            HICO.object_n_verb_to_interaction,
+            train_anno_interaction=train.dataset.anno_interaction)
+        info["total_s"] = time.perf_counter() - t0
+    finally:
+        E.DetectionAPMeter = meter
+    return result, runs, info
+
+
+def eval_from_disk_phase(model, cfg, args, card):
+    """Phase 7: the HICO-DET evaluation from disk on the main path's model
+    (phase 5's, batch ``args.batch``), then the small configuration's card
+    against CPU on the same tree. Returns the ``eval_run`` record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.cli.main_finetune import batches_from_factory
+    from hoigen_tpu_torch.data import factory as factory_module
+    from hoigen_tpu_torch.engine import hoi_model as hm
+    from hoigen_tpu_torch.models.cache import random_caches
+    from hoigen_tpu_torch.ops.attention import fused_attention
+    from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
+    from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
+    from hoigen_tpu_torch.tools.make_hicodet import \
+        annotate_from_detections, write_hicodet
+    from hoigen_tpu_torch.utils.config import RunConfig
+
+    t7 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="hicodet_")
+    try:
+        write_hicodet(root, EVAL_SIZES, seed=args.seed)
+        # the CLI's defaults: host_clip_stream False, 2 workers, 32 pairs
+        run_cfg = RunConfig(num_classes=600, batch_size=args.batch,
+                            seed=args.seed)
+        test, train = hico_factories(root, run_cfg,
+                                     cfg.upt.clip_resolution)
+        n_img = len(test)
+        n_batches = -(-n_img // args.batch)
+
+        wrappers = (fused_attention, fused_bottleneck_chain,
+                    fused_cache_logits)
+        step = hm.make_eval_step(cfg)
+        for fn in wrappers:
+            fn.launches = 0
+        result, runs, info = evaluate_from_disk(step, model, cfg, run_cfg,
+                                                test, train)
+        counts = [fn.launches for fn in wrappers]
+        expect = [n * n_batches for n in (6, 1, 3)]
+        log(f"eval from disk: launches {counts} over {n_batches} batches, "
+            f"expected {expect}")
+        if counts != expect:
+            fail(f"eval from disk: launch counts {counts} != {expect}")
+        buckets = sorted(set(info["shapes"]))
+        log(f"eval from disk: padded feeds {info['shapes']}; buckets "
+            f"{buckets}")
+        if (800, 1344) not in buckets or not (
+                {(1344, 1344), (1344, 800)} & set(buckets)):
+            fail(f"eval from disk: buckets {buckets} miss (800, 1344) or a "
+                 "portrait-bearing shape")
+        ap = np.asarray(result["ap"])
+        if ap.shape != (600,) or not np.isfinite(ap).all() or \
+                not ((ap >= 0) & (ap <= 1)).all():
+            fail(f"eval from disk: ap of shape {ap.shape}, range "
+                 f"[{ap.min()}, {ap.max()}]")
+        # what the meter saw against the real rows' nonzero scores of each
+        # step (a padded row that leaks adds its copy's detections)
+        real = [min(args.batch, n_img - i * args.batch)
+                for i in range(n_batches)]
+        want = sum(sum(rows[:n]) for rows, n in
+                   zip(info["row_nonzero"], real))
+        if info["meter"] != want or \
+                [len(b.indices) for _, b in runs] != real:
+            fail(f"eval from disk: {info['meter']} detections reached the "
+                 f"meter, the real rows hold {want}; rows {real}")
+        log(f"eval from disk: {info['meter']} detections reached the meter "
+            f"({want} nonzero scores in the real rows) ok")
+
+        # the same evaluation again, each batch shape's first call behind
+        # it: the same AP, and the time of a pass in the steady state
+        again, _, warm = evaluate_from_disk(step, model, cfg, run_cfg, test,
+                                            train)
+        if not np.array_equal(again["ap"], result["ap"]) or \
+                warm["meter"] != info["meter"]:
+            fail("eval from disk: a second pass gives another AP vector")
+
+        # the loader alone: one pass of batches_from_factory, no step
+        t0 = time.perf_counter()
+        for _ in batches_from_factory(test, args.batch, run_cfg,
+                                      shuffle=False, pad_tail=True):
+            pass
+        loader_s = time.perf_counter() - t0
+        steps_s = float(sum(info["step_s"]))
+        host_s = info["total_s"] - info["wait_s"]
+        record = {
+            "images": n_img, "batch": args.batch, "batches": n_batches,
+            "buckets": [list(b) for b in buckets],
+            "mAP": result["mAP"], "mAP_rare": result["mAP_rare"],
+            "mAP_non_rare": result["mAP_non_rare"],
+            "detections": info["meter"],
+            "total_s": info["total_s"],
+            "images_per_s": n_img / info["total_s"],
+            "loader_alone_s": loader_s, "steps_s": steps_s,
+            "wait_beyond_steps_s": info["wait_s"] - steps_s,
+            "evaluate_hico_s": host_s,
+            "step_images_per_s": args.batch * n_batches / steps_s,
+            "step_ms": [t * 1e3 for t in info["step_s"]],
+            "second_pass": {
+                "total_s": warm["total_s"],
+                "images_per_s": n_img / warm["total_s"],
+                "steps_s": float(sum(warm["step_s"])),
+                "wait_beyond_steps_s": warm["wait_s"] - sum(warm["step_s"]),
+                "evaluate_hico_s": warm["total_s"] - warm["wait_s"],
+                "step_ms": [t * 1e3 for t in warm["step_s"]]},
+            "launches": dict(zip(("attention_fwd", "bottleneck_chain_fwd",
+                                  "cache_logits_fwd"), counts)),
+            "card": card}
+        log(f"eval from disk: mAP {result['mAP']:.6f}, rare "
+            f"{result['mAP_rare']:.6f}, non-rare "
+            f"{result['mAP_non_rare']:.6f} (random weights)")
+        log(f"eval from disk: {n_img} images in {info['total_s']:.3f} s, "
+            f"{record['images_per_s']:.2f} images/s from the first fetch to "
+            f"the result, on {card}")
+        step_ms = ", ".join(f"{t:.1f}" for t in record["step_ms"])
+        log(f"eval from disk: time split: loader alone {loader_s:.3f} s; "
+            f"steps {steps_s:.3f} s (ms {step_ms}); waiting on the loader "
+            f"beyond the steps {record['wait_beyond_steps_s']:.3f} s; "
+            f"evaluate_hico's own time (association and AP) {host_s:.3f} s")
+        log(f"eval from disk: the step alone at "
+            f"{record['step_images_per_s']:.2f} images/s over {n_batches} "
+            f"padded batches of {args.batch} (phase 5: the line 'main path: "
+            "eval step')")
+        sp = record["second_pass"]
+        log(f"eval from disk, second pass (the same AP vector): "
+            f"{sp['total_s']:.3f} s, {sp['images_per_s']:.2f} images/s; "
+            f"steps {sp['steps_s']:.3f} s (ms "
+            f"{', '.join(f'{t:.1f}' for t in sp['step_ms'])}); waiting on "
+            f"the loader beyond the steps {sp['wait_beyond_steps_s']:.3f} s; "
+            f"evaluate_hico's own time {sp['evaluate_hico_s']:.3f} s")
+
+        # the small configuration, card against CPU, on the same tree
+        small = tiny_config()
+        caches = random_caches(24, 2, num_objects=10, seed=args.seed)
+        small_cfg = RunConfig(num_classes=24, batch_size=args.batch,
+                              seed=args.seed)
+        saved = factory_module.DEFAULT_BUCKETS
+        factory_module.DEFAULT_BUCKETS = SMALL_BUCKETS
+
+        def small_run(device):
+            params, buffers = hm.init_hoi_model(
+                torch.Generator().manual_seed(args.seed), small, caches,
+                device=device)
+            # spread by 6, as the port's CPU tests do: at 30 the small
+            # f32 DETR's boxes on these images are all zero-height, and no
+            # detection could match a ground-truth pair
+            spread_detection_heads(params, args.seed, scale=6.0)
+            test_s, train_s = hico_factories(
+                root, small_cfg, small.upt.clip_resolution, SMALL_TRANSFORM)
+            return evaluate_from_disk(
+                hm.make_eval_step(small, device=device), (params, buffers),
+                small, small_cfg, test_s, train_s)
+
+        try:
+            # the CPU run's own detections become the ground truth, so
+            # that the AP vectors compared are not zero
+            annotate_from_detections(root, small_run("cpu")[1],
+                                     small.upt.proposals)
+            outs = {device: small_run(device) for device in ("cpu", "cuda")}
+        finally:
+            factory_module.DEFAULT_BUCKETS = saved
+        (cres, cruns, cinfo), (gres, gruns, ginfo) = outs["cpu"], \
+            outs["cuda"]
+        if cinfo["shapes"] != ginfo["shapes"] or \
+                not {(80, 80), (80, 56)} & set(ginfo["shapes"]) or \
+                not ginfo["meter"] or not np.max(cres["ap"]) > 0:
+            fail(f"small eval from disk: padded feeds {ginfo['shapes']}, "
+                 f"{ginfo['meter']} detections, max AP "
+                 f"{np.max(cres['ap'])}")
+        worst = 0.0
+        for (co, _), (go, _) in zip(cruns, gruns):
+            for k in ("pair_valid", "objects", "detection_verbs"):
+                if not np.array_equal(co[k], go[k]):
+                    fail(f"small eval from disk: {k} differs between card "
+                         "and CPU")
+            for k in ("boxes", "detection_scores"):
+                err = float(np.abs(co[k] - go[k]).max())
+                if not err <= 2e-4 * max(1.0, float(np.abs(co[k]).max())):
+                    fail(f"small eval from disk: {k} differs by {err:.3e}")
+                worst = max(worst, err)
+        ap_err = float(np.abs(np.asarray(gres["ap"])
+                              - np.asarray(cres["ap"])).max())
+        if not ap_err <= 1e-6:
+            fail(f"small eval from disk: AP vectors differ by {ap_err:.3e}")
+        log(f"small eval from disk: {len(gruns)} batches, "
+            f"{ginfo['meter']} detections, indices equal, boxes and scores "
+            f"within {worst:.3e}; AP vectors within {ap_err:.3e} (max AP "
+            f"{float(np.max(gres['ap'])):.4f}) ok")
+        record["small_detections"] = ginfo["meter"]
+        record["small_ap_max_abs_diff"] = ap_err
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
+    return record
 
 
 # ------------------------------------------------------------ training step
@@ -1100,6 +1467,9 @@ def main():
             args.train_profile_steps),
         args.train_profile_steps, tmean)
     log(f"phase 6 took {time.perf_counter() - t6:.1f} s")
+
+    # phase 7: the HICO-DET evaluation from disk
+    eval_run = eval_from_disk_phase(model, cfg, args, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for rec in records:
@@ -1115,7 +1485,8 @@ def main():
                            "q1_ms": tq1, "q3_ms": tq3,
                            "images_per_s": timages, "device_busy_ms": tbusy,
                            "first_loss": losses[0], "last_loss": losses[-1],
-                           "card": card}}
+                           "card": card},
+            "eval_run": eval_run}
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -70,6 +70,12 @@
 // to the next; blocks here run in parallel and in no order, so each sum
 // has one owner and a fixed order instead: no atomics, and two calls give
 // the same bits.
+//
+// Head dims. The kernels above are instantiated at D = 32 and 64 (the
+// wrapper zero-pads a smaller D to one of them), which hold a row's
+// operands and accumulators in registers. A D above 64 (zero-padded to a
+// multiple of 64) takes the wide kernels at the end of this file instead,
+// whose registers do not grow with D: see "head dims above 64" below.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -820,6 +826,369 @@ __global__ void attn_bwd_dbias(const float* __restrict__ part,
   dbias[i] = s;
 }
 
+// ------------------------------------------------ head dims above 64
+// A head dim D > 64, zero-padded by the wrapper to a multiple of 64, takes
+// these kernels, so that every D the TPU kernels take runs on the card.
+// Each block owns one 64-column slice of its rows' output (out in the
+// forward; dq, or dk and dv, in the backward): it sweeps the scores q k^T,
+// and in the backward dout v^T, over the whole depth in 64-column chunks,
+// then multiplies only its own slice. A thread's registers are those of
+// D = 64 whatever D is; the price is that the D / 64 blocks of a row tile
+// each recompute its scores, and that the chunks are staged by plain loads
+// (no ring). The rounding points, the online softmax, the saved statistics
+// and the backward's launches are those of the kernels above, and a score
+// accumulates over the depth in the same order.
+constexpr int kW = 64;            // columns of a chunk and of a slice
+constexpr int kWS = kW + 8;       // bf16 row stride of a staged chunk
+
+// c (16 x N) += A (16 x kW, fragments a) times B^T, where B is stored
+// (n, kW) row-major as bf16 in shared memory with row stride S
+template <int N, int S>
+__device__ __forceinline__ void mma_abt_acc(float c[N / 8][4],
+                                            uint32_t a[kW / 16][4],
+                                            const bf16* b, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const bf16* row = b + (j * 8 + g) * S;
+#pragma unroll
+    for (int kk = 0; kk < kW / 16; ++kk)
+      mma_bf16(c[j], a[kk], ld32(row + kk * 16 + 2 * t),
+               ld32(row + kk * 16 + 2 * t + 8));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_frags(float c[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+// forward: one block per (64-query tile x output slice, head, batch)
+template <typename T>
+__global__ void __launch_bounds__(128) attn_fwd_wide(FwdArgs a, int D) {
+  constexpr int NT = 128;
+  __shared__ __align__(16) bf16 sK[kBK * kWS];
+  __shared__ __align__(16) bf16 sV[kBK * kWS];
+  __shared__ float sBias[kBK];
+
+  const int nc = D / kW;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int col = (blockIdx.x % nc) * kW;              // the output slice
+  const int w0 = (blockIdx.x / nc) * 64 + warp * 16;   // the warp's rows
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.Lk : nullptr;
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[kW / 8][4];
+  zero_frags<kW>(o);
+
+  for (int k0 = 0; k0 < a.Lk; k0 += kBK) {
+    float sc[kBK / 8][4];
+    zero_frags<kBK>(sc);
+    for (int c = 0; c < D; c += kW) {
+      uint32_t qa[kW / 16][4];
+      load_afrag_global<kW>(qa, qb + c, a.sq[2], w0, a.Lq, g, t);
+      __syncthreads();                     // the last chunk is consumed
+      load_rows_bf16<T, kW, kWS, NT, kBK>(sK, kb + c, a.sk[2], k0, a.Lk,
+                                          tid);
+      __syncthreads();
+      mma_abt_acc<kBK, kWS>(sc, qa, sK, g, t);
+    }
+    load_rows_bf16<T, kW, kWS, NT, kBK>(sV, vb + col, a.sv[2], k0, a.Lk,
+                                        tid);
+    if (biasb)
+      for (int i = tid; i < kBK; i += NT)
+        sBias[i] = k0 + i < a.Lk ? biasb[k0 + i] : 0.f;
+    __syncthreads();
+    bias_scores<kBK>(sc, biasb ? sBias : nullptr, k0, a.Lk, a.scale, t);
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = m[r] == -INFINITY ? 0.f : __expf(m[r] - mn);
+      m[r] = mn;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kW / 8; ++j) {
+      o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      sc[j][0] = __expf(sc[j][0] - m[0]);
+      sc[j][1] = __expf(sc[j][1] - m[0]);
+      sc[j][2] = __expf(sc[j][2] - m[1]);
+      sc[j][3] = __expf(sc[j][3] - m[1]);
+      l[0] += sc[j][0] + sc[j][1];
+      l[1] += sc[j][2] + sc[j][3];
+    }
+    mma_pb<kBK, kW, kWS>(o, sc, sV, lane);
+  }
+
+  const float inv0 = 1.f / quad_sum(l[0]), inv1 = 1.f / quad_sum(l[1]);
+  T* ob = static_cast<T*>(a.out) + b * a.so[0] + h * a.so[1] + col;
+  const int r0 = w0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < kW / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (r0 < a.Lq)
+      Io<T>::store2(ob + r0 * a.so[2] + c, o[j][0] * inv0, o[j][1] * inv0);
+    if (r1 < a.Lq)
+      Io<T>::store2(ob + r1 * a.so[2] + c, o[j][2] * inv1, o[j][3] * inv1);
+  }
+  if (a.stats && col == 0 && t == 0) {     // one slice writes the stats
+    const size_t rows = (size_t)gridDim.z * a.H * a.Lq;
+    float* st = a.stats + ((size_t)b * a.H + h) * a.Lq;
+    if (r0 < a.Lq) { st[r0] = m[0]; st[rows + r0] = inv0; }
+    if (r1 < a.Lq) { st[r1] = m[1]; st[rows + r1] = inv1; }
+  }
+}
+
+// backward launch 1 at any D (a multiple of 8): attn_bwd_delta's sum
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    attn_bwd_delta_wide(BwdArgs a, int D) {
+  const int tid = threadIdx.x, t = tid & 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row = blockIdx.x * (kBwdThreads / 4) + (tid >> 2);
+  float s = 0.f;
+  if (row < a.Lq) {
+    const T* x = static_cast<const T*>(a.dout) + b * a.sd[0] +
+                 h * a.sd[1] + row * a.sd[2];
+    const T* y = static_cast<const T*>(a.o) + b * a.so[0] + h * a.so[1] +
+                 row * a.so[2];
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      const float2 u = Io<T>::load2(x + c), w = Io<T>::load2(y + c);
+      s += u.x * w.x + u.y * w.y;
+    }
+  }
+  s = quad_sum(s);
+  if (row < a.Lq && t == 0)
+    a.delta[((size_t)b * a.H + h) * a.Lq + row] = s;
+}
+
+// role 1: dq's slice [col, col + kW) for 64 query rows, sweeping the keys
+// in tiles of kBQ2
+template <typename T>
+__device__ __forceinline__ void bwd_dq_wide(const BwdArgs& a, int D, int q0,
+                                            int col) {
+  constexpr int NT = kBwdThreads, BK = kBQ2;
+  __shared__ __align__(16) bf16 sK[BK * kWS];     // a chunk of k, of v,
+  __shared__ __align__(16) bf16 sV[BK * kWS];
+  __shared__ __align__(16) bf16 sKc[BK * kWS];    // ... and k's slice
+  __shared__ float sBias[BK];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const T* db = static_cast<const T*>(a.dout) + b * a.sd[0] + h * a.sd[1];
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.Lk : nullptr;
+  const size_t rows = (size_t)gridDim.z * a.H * a.Lq;
+  const size_t bh = ((size_t)b * a.H + h) * a.Lq;
+  const int w0 = q0 + warp * 16, r0 = w0 + g, r1 = r0 + 8;
+
+  float m[2], inv[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    const bool in = row < a.Lq;
+    m[r] = in ? a.stats[bh + row] : INFINITY;
+    inv[r] = in ? a.stats[rows + bh + row] : 0.f;
+    delta[r] = in ? a.delta[bh + row] : 0.f;
+  }
+  float acc[kW / 8][4];
+  zero_frags<kW>(acc);
+
+  for (int k0 = 0; k0 < a.Lk; k0 += BK) {
+    float sc[BK / 8][4], dp[BK / 8][4];
+    zero_frags<BK>(sc);
+    zero_frags<BK>(dp);
+    for (int c = 0; c < D; c += kW) {
+      uint32_t qa[kW / 16][4], da[kW / 16][4];
+      load_afrag_global<kW>(qa, qb + c, a.sq[2], w0, a.Lq, g, t);
+      load_afrag_global<kW>(da, db + c, a.sd[2], w0, a.Lq, g, t);
+      __syncthreads();
+      load_rows_bf16<T, kW, kWS, NT, BK>(sK, kb + c, a.sk[2], k0, a.Lk, tid);
+      load_rows_bf16<T, kW, kWS, NT, BK>(sV, vb + c, a.sv[2], k0, a.Lk, tid);
+      __syncthreads();
+      mma_abt_acc<BK, kWS>(sc, qa, sK, g, t);
+      mma_abt_acc<BK, kWS>(dp, da, sV, g, t);
+    }
+    load_rows_bf16<T, kW, kWS, NT, BK>(sKc, kb + col, a.sk[2], k0, a.Lk,
+                                       tid);
+    if (biasb)
+      for (int i = tid; i < BK; i += NT)
+        sBias[i] = k0 + i < a.Lk ? biasb[k0 + i] : 0.f;
+    __syncthreads();
+    bias_scores<BK>(sc, biasb ? sBias : nullptr, k0, a.Lk, a.scale, t);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = __expf(sc[j][e] - m[r]) * inv[r];
+        sc[j][e] = p * (dp[j][e] - delta[r]) * a.scale;   // ds * scale
+      }
+    }
+    mma_pb<BK, kW, kWS>(acc, sc, sKc, lane);
+  }
+
+  T* dqb = static_cast<T*>(a.dq) + b * a.sdq[0] + h * a.sdq[1] + col;
+#pragma unroll
+  for (int j = 0; j < kW / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (r0 < a.Lq)
+      Io<T>::store2(dqb + r0 * a.sdq[2] + c, acc[j][0], acc[j][1]);
+    if (r1 < a.Lq)
+      Io<T>::store2(dqb + r1 * a.sdq[2] + c, acc[j][2], acc[j][3]);
+  }
+}
+
+// role 2: the slices [col, col + kW) of dk and dv for 64 keys, and (the
+// block of slice 0) the per-head partial sums of the bias gradient,
+// sweeping the queries in tiles of kBQ2
+template <typename T>
+__device__ __forceinline__ void bwd_dkdv_wide(const BwdArgs& a, int D,
+                                              int k0, int col) {
+  constexpr int NT = kBwdThreads, BQ = kBQ2;
+  __shared__ __align__(16) bf16 sQ[BQ * kWS];     // a chunk of q, of dout,
+  __shared__ __align__(16) bf16 sDo[BQ * kWS];
+  __shared__ __align__(16) bf16 sQc[BQ * kWS];    // ... and their slices
+  __shared__ __align__(16) bf16 sDoc[BQ * kWS];
+  __shared__ __align__(16) float sStat[3 * BQ];   // max, 1/sum, delta
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const T* db = static_cast<const T*>(a.dout) + b * a.sd[0] + h * a.sd[1];
+  const size_t rows = (size_t)gridDim.z * a.H * a.Lq;
+  const size_t bh = ((size_t)b * a.H + h) * a.Lq;
+  const int w0 = k0 + warp * 16, kr0 = w0 + g, kr1 = kr0 + 8;
+
+  float kbias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r ? kr1 : kr0;
+    kbias[r] = key < a.Lk
+                   ? (a.bias ? a.bias[(size_t)b * a.Lk + key] : 0.f)
+                   : -INFINITY;
+  }
+  float dkacc[kW / 8][4], dvacc[kW / 8][4];
+  zero_frags<kW>(dkacc);
+  zero_frags<kW>(dvacc);
+  float dbias[2] = {0.f, 0.f};
+
+  for (int q0 = 0; q0 < a.Lq; q0 += BQ) {
+    // p^T and dp^T for this warp's 16 keys and the tile's queries
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    zero_frags<BQ>(st);
+    zero_frags<BQ>(dpt);
+    for (int c = 0; c < D; c += kW) {
+      uint32_t ka[kW / 16][4], va[kW / 16][4];
+      load_afrag_global<kW>(ka, kb + c, a.sk[2], w0, a.Lk, g, t);
+      load_afrag_global<kW>(va, vb + c, a.sv[2], w0, a.Lk, g, t);
+      __syncthreads();
+      load_rows_bf16<T, kW, kWS, NT, BQ>(sQ, qb + c, a.sq[2], q0, a.Lq, tid);
+      load_rows_bf16<T, kW, kWS, NT, BQ>(sDo, db + c, a.sd[2], q0, a.Lq,
+                                         tid);
+      __syncthreads();
+      mma_abt_acc<BQ, kWS>(st, ka, sQ, g, t);
+      mma_abt_acc<BQ, kWS>(dpt, va, sDo, g, t);
+    }
+    load_rows_bf16<T, kW, kWS, NT, BQ>(sQc, qb + col, a.sq[2], q0, a.Lq,
+                                       tid);
+    load_rows_bf16<T, kW, kWS, NT, BQ>(sDoc, db + col, a.sd[2], q0, a.Lq,
+                                       tid);
+    for (int i = tid; i < BQ; i += NT) {
+      const bool in = q0 + i < a.Lq;
+      sStat[i] = in ? a.stats[bh + q0 + i] : 0.f;
+      sStat[BQ + i] = in ? a.stats[rows + bh + q0 + i] : 0.f;
+      sStat[2 * BQ + i] = in ? a.delta[bh + q0 + i] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int c0 = j * 8 + 2 * t;
+      const float2 mj = *reinterpret_cast<const float2*>(sStat + c0);
+      const float2 ij = *reinterpret_cast<const float2*>(sStat + BQ + c0);
+      const float2 dj =
+          *reinterpret_cast<const float2*>(sStat + 2 * BQ + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, odd = e & 1;
+        const float x = __fadd_rn(__fmul_rn(st[j][e], a.scale), kbias[r]);
+        const float p = q0 + c0 + odd < a.Lq
+                            ? __expf(x - (odd ? mj.y : mj.x)) *
+                                  (odd ? ij.y : ij.x)
+                            : 0.f;
+        const float ds = p * (dpt[j][e] - (odd ? dj.y : dj.x));
+        dbias[r] += ds;
+        st[j][e] = p;
+        dpt[j][e] = ds * a.scale;
+      }
+    }
+    mma_pb<BQ, kW, kWS>(dvacc, st, sDoc, lane);
+    mma_pb<BQ, kW, kWS>(dkacc, dpt, sQc, lane);
+  }
+
+  T* dkb = static_cast<T*>(a.dk) + b * a.sdk[0] + h * a.sdk[1] + col;
+  T* dvb = static_cast<T*>(a.dv) + b * a.sdv[0] + h * a.sdv[1] + col;
+#pragma unroll
+  for (int j = 0; j < kW / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (kr0 < a.Lk) {
+      Io<T>::store2(dkb + kr0 * a.sdk[2] + c, dkacc[j][0], dkacc[j][1]);
+      Io<T>::store2(dvb + kr0 * a.sdv[2] + c, dvacc[j][0], dvacc[j][1]);
+    }
+    if (kr1 < a.Lk) {
+      Io<T>::store2(dkb + kr1 * a.sdk[2] + c, dkacc[j][2], dkacc[j][3]);
+      Io<T>::store2(dvb + kr1 * a.sdv[2] + c, dvacc[j][2], dvacc[j][3]);
+    }
+  }
+  if (a.dbias_part && col == 0) {
+    dbias[0] = quad_sum(dbias[0]);
+    dbias[1] = quad_sum(dbias[1]);
+    if (t == 0) {
+      const size_t base = ((size_t)b * a.H + h) * a.Lk;
+      if (kr0 < a.Lk) a.dbias_part[base + kr0] = dbias[0];
+      if (kr1 < a.Lk) a.dbias_part[base + kr1] = dbias[1];
+    }
+  }
+}
+
+// launch 2 at D > 64: block x = tile * (D / kW) + slice; tiles [0, nq) are
+// dq tiles, the rest dk/dv tiles
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    attn_bwd_wide(BwdArgs a, int D, int nq) {
+  const int nc = D / kW;
+  const int tile = blockIdx.x / nc, col = (blockIdx.x % nc) * kW;
+  if (tile < nq)
+    bwd_dq_wide<T>(a, D, tile * kBwdRows, col);
+  else
+    bwd_dkdv_wide<T>(a, D, (tile - nq) * kBwdRows, col);
+}
+
 template <typename T, int D, int NW, int STAGES>
 cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t st) {
   constexpr int bytes = FwdSmem<T, D, NW, STAGES>::BYTES;
@@ -869,6 +1238,33 @@ cudaError_t backward(const BwdArgs& a, int B, float* dbias,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t forward_wide(const FwdArgs& a, int B, int D, cudaStream_t st) {
+  const dim3 grid((a.Lq + 63) / 64 * (D / kW), a.H, B);
+  attn_fwd_wide<T><<<grid, 128, 0, st>>>(a, D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t backward_wide(const BwdArgs& a, int B, int D, float* dbias,
+                          cudaStream_t st) {
+  const int nq = (a.Lq + kBwdRows - 1) / kBwdRows;
+  const int nk = (a.Lk + kBwdRows - 1) / kBwdRows;
+  attn_bwd_delta_wide<T><<<dim3((a.Lq + kBwdThreads / 4 - 1) /
+                                    (kBwdThreads / 4), a.H, B),
+                           kBwdThreads, 0, st>>>(a, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_wide<T><<<dim3((nq + nk) * (D / kW), a.H, B), kBwdThreads, 0,
+                     st>>>(a, D, nq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !dbias) return err;
+  const int n = B * a.Lk;
+  attn_bwd_dbias<<<(n + 255) / 256, 256, 0, st>>>(a.dbias_part, dbias, B,
+                                                  a.H, a.Lk);
+  return cudaGetLastError();
+}
+
 void copy3(long long dst[3], const long long* src) {
   dst[0] = src[0];
   dst[1] = src[1];
@@ -879,7 +1275,9 @@ void copy3(long long dst[3], const long long* src) {
 
 // f32 != 0: q, k, v and out are f32, else bf16. stats: (2, B, H, Lq) f32
 // or null. strides: the B, H and L strides (elements) of q, k, v and out,
-// 12 values. bq and stages as the wrapper's _attn_plan gives them.
+// 12 values. bq and stages as the wrapper's _attn_plan gives them (D of
+// 32 or 64; a D above 64, a multiple of 64, takes the wide kernel, which
+// reads neither).
 extern "C" int attention_forward(const void* q, const void* k, const void* v,
                                  const void* bias, void* out, void* stats,
                                  const long long* strides, int B, int H,
@@ -903,6 +1301,9 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
   else if (D == 64)
     err = f32 ? forward<float, 64>(a, B, bq, stages, st)
               : forward<bf16, 64>(a, B, bq, stages, st);
+  else if (D > 64 && D % kW == 0)
+    err = f32 ? forward_wide<float>(a, B, D, st)
+              : forward_wide<bf16>(a, B, D, st);
   return static_cast<int>(err);
 }
 
@@ -943,5 +1344,8 @@ extern "C" int attention_backward(
   else if (D == 64)
     err = f32 ? backward<float, 64>(a, B, db, st)
               : backward<bf16, 64>(a, B, db, st);
+  else if (D > 64 && D % kW == 0)
+    err = f32 ? backward_wide<float>(a, B, D, db, st)
+              : backward_wide<bf16>(a, B, D, db, st);
   return static_cast<int>(err);
 }

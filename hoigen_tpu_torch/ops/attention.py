@@ -18,6 +18,11 @@ the layout of the input they belong to (:func:`_layout_like`): out and dq
 like q, dk like k, dv like v. The caller's reshape back to (B, L, H * D)
 is then free, and so is autograd's reshape in the backward.
 
+Head dims. The kernels take any head dim, as ``fused_attention`` does:
+one up to 64 runs at 32 or 64 with zero columns, and one above 64 at the
+next multiple of 64 on the source's wide kernels, whose blocks each own a
+64-column slice of the output (``csrc/attention.cu``).
+
 Saved statistics. Where a gradient will be asked for, the forward also
 returns each query row's softmax max and 1/sum, (2, B, H, Lq) f32, and the
 backward reads them instead of recomputing them (the TPU kernel saves
@@ -143,8 +148,6 @@ def _check(name, q, k, v, key_bias):
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d > 64:
-        raise ValueError(f"{name}: head dim {d} > 64")
     if key_bias is not None and (key_bias.shape != (b, lk)
                                  or not key_bias.is_cuda):
         raise ValueError(f"{name}: key_bias must be a CUDA ({b}, {lk}) "
@@ -152,8 +155,9 @@ def _check(name, q, k, v, key_bias):
 
 
 def _head_dim(d):
-    """The head dim the kernels run a head dim ``d`` <= 64 at: 32 or 64."""
-    return 32 if d <= 32 else 64
+    """The head dim the kernels run a head dim ``d`` at: 32 or 64 up to
+    64, else the next multiple of 64 (the wide kernels)."""
+    return 32 if d <= 32 else 64 * -(-d // 64)
 
 
 def _pad_heads(*tensors):
@@ -224,8 +228,12 @@ def _attn_plan(b, h, lq, lk, d, dtype):
     converted to bf16 (rows of D + 8) if larger, then each stage's K and V
     tiles as staged (rows padded to D + 4 in f32, D + 8 in bf16) and 64
     bias values. grid is (query tiles, heads, batch). Lk does not change
-    it."""
+    it. A head dim above 64 takes the wide kernel, which has no ring and
+    static shared memory: (64, 0, 0, (query tiles x column slices, heads,
+    batch))."""
     del lk
+    if d > 64:
+        return 64, 0, 0, (-(-lq // 64) * (d // 64), h, b)
     f32 = dtype == torch.float32
     item = 4 if f32 else 2
     row = d + 4 if f32 else d + 8
@@ -257,13 +265,14 @@ def _bwd_launcher():
 
 def attention_forward(q, k, v, key_bias=None, sm_scale=None,
                       return_stats=False, plan=None):
-    """K1 on CUDA tensors (bf16 or f32 q/k/v, head dim up to 64, run at 32
-    or 64 with zero columns (:func:`_pad_heads`); f32 operands are rounded
-    to bf16 for the products), the plain version on CPU tensors. The
-    output is in q's layout (:func:`_layout_like`); with ``return_stats``
-    the row max and 1/sum, (2, B, H, Lq) f32, come with it. ``plan``
-    overrides :func:`_attn_plan`'s (bq, stages). No gradient:
-    :func:`fused_attention` is the differentiable entry point."""
+    """K1 on CUDA tensors (bf16 or f32 q/k/v, any head dim, run at
+    :func:`_head_dim`'s with zero columns (:func:`_pad_heads`); f32
+    operands are rounded to bf16 for the products), the plain version on
+    CPU tensors. The output is in q's layout (:func:`_layout_like`); with
+    ``return_stats`` the row max and 1/sum, (2, B, H, Lq) f32, come with
+    it. ``plan`` overrides :func:`_attn_plan`'s (bq, stages). No
+    gradient: :func:`fused_attention` is the differentiable entry
+    point."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
@@ -384,7 +393,7 @@ def fused_attention(q, k, v, key_bias=None, sm_scale=None):
     (B, H, Lq, D) in q.dtype and q's layout.
 
     Differentiable in q, k, v and key_bias. CUDA tensors need q/k/v of one
-    dtype, bf16 or f32, with D <= 64; anything else raises.
+    dtype, bf16 or f32 (any D); anything else raises.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

@@ -18,64 +18,16 @@ import torch
 
 from hoigen_tpu.engine import hoi_model as jhm
 from hoigen_tpu.models.cache import random_caches as j_random_caches
-from hoigen_tpu.models.clip.config import CLIPConfig as JCLIPConfig
 from hoigen_tpu.models.detr import DETRConfig as JDETRConfig
-from hoigen_tpu.models.proposals import ProposalConfig as JProposalConfig
-from hoigen_tpu.models.upt import UPTConfig as JUPTConfig
 
 from hoigen_tpu_torch import bridge
 from hoigen_tpu_torch.engine import hoi_model as thm
 from hoigen_tpu_torch.models.cache import random_caches as t_random_caches
-from hoigen_tpu_torch.models.clip.config import CLIPConfig as TCLIPConfig
 from hoigen_tpu_torch.models.detr.config import DETRConfig as TDETRConfig
-from hoigen_tpu_torch.models.proposals import ProposalConfig as \
-    TProposalConfig
-from hoigen_tpu_torch.models.upt import UPTConfig as TUPTConfig
 
-CLIP_KW = dict(image_resolution=32, vision_layers=2, vision_width=64,
-               vision_patch_size=8, adapter_layers=(0, 1))
-# the JAX config also sizes a text tower, which the eval step does not run
-TEXT_KW = dict(transformer_layers=2, transformer_width=64, context_length=16)
-# 1 real detector class + no-object, as the JAX package's tiny dryrun: a
-# random DETR gives every query the same label, and with one class that
-# label is 'human', so human-human pairs form (the object slot group is
-# covered by the proposal tests of test_torch_modules.py)
-DETR_KW = dict(hidden_dim=64, nheads=2, enc_layers=2, dec_layers=2,
-               dim_feedforward=128, num_queries=12, num_classes=2)
-UPT_KW = dict(num_classes=24, num_shot=2, clip_resolution=32,
-              use_dino=True, cache_model="gen_feat", use_pallas_cache=True)
-DETR_HW = (64, 96)
-
-
-def _configs():
-    jcfg = jhm.HOIModelConfig(
-        clip=JCLIPConfig(**CLIP_KW, **TEXT_KW), detr=JDETRConfig(**DETR_KW),
-        upt=JUPTConfig(proposals=JProposalConfig(max_instances=4), **UPT_KW),
-        dtype="float32")
-    tcfg = thm.HOIModelConfig(
-        clip=TCLIPConfig(**CLIP_KW), detr=TDETRConfig(**DETR_KW),
-        upt=TUPTConfig(proposals=TProposalConfig(max_instances=4), **UPT_KW),
-        dtype="float32")
-    return jcfg, tcfg
-
-
-def _f32(tree):
-    return jax.tree.map(
-        lambda a: a.astype(jnp.float32)
-        if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
-
-
-def _spread_bbox_head(frozen):
-    # random-init DETR emits near-identical boxes for every query, so NMS
-    # keeps one and no pairs form; spread the box head as the JAX package's
-    # tiny dryrun does
-    last = frozen["detr"]["bbox_embed"][-1]
-    frozen["detr"]["bbox_embed"][-1] = {
-        "w": last["w"] * 6.0,
-        "b": last["b"] + jnp.asarray(
-            np.random.default_rng(0).normal(0, 1.0, last["b"].shape),
-            last["b"].dtype)}
-    return frozen
+from torch_port_common import DETR_HW, DETR_KW, as_np, \
+    eval_configs as _configs, eval_models, f32 as _f32, \
+    spread_bbox_head as _spread_bbox_head
 
 
 def test_caches_and_batch_match_the_jax_package():
@@ -99,20 +51,13 @@ def test_caches_and_batch_match_the_jax_package():
 def test_eval_step_matches_jax():
     jcfg, tcfg = _configs()
     caches = j_random_caches(24, 2, num_objects=10)
-    trainable, frozen, buffers = jhm.init_hoi_model(
-        jax.random.PRNGKey(0), jcfg, caches)
-    trainable, frozen, buffers = (_f32(trainable),
-                                  _spread_bbox_head(_f32(frozen)),
-                                  _f32(buffers))
+    (trainable, frozen, buffers), (params, tbuf) = eval_models(jcfg, caches)
     batch = jhm.make_example_batch(jcfg, batch_size=2, detr_hw=DETR_HW,
                                    device_clip_stream=True)
     want = jax.jit(jhm.make_eval_step(jcfg))(trainable, frozen, buffers,
                                              batch)
     want = {k: np.asarray(v) for k, v in want.items()}
 
-    as_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    params, tbuf = bridge.params_from_jax(as_np(trainable), as_np(frozen),
-                                          as_np(buffers), device="cpu")
     got = thm.make_eval_step(tcfg, device="cpu")(params, tbuf, batch)
     got = {k: v.numpy() for k, v in got.items()}
 
@@ -194,7 +139,6 @@ def test_eval_step_with_a_92_logit_detector_matches_jax():
                                              batch)
     want = {k: np.asarray(v) for k, v in want.items()}
 
-    as_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     params, tbuf = bridge.params_from_jax(as_np(trainable), as_np(frozen),
                                           as_np(buffers), device="cpu")
     got = thm.make_eval_step(tcfg, device="cpu")(params, tbuf, batch)

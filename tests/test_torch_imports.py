@@ -1,8 +1,9 @@
 """hoigen_tpu_torch stands alone: it imports neither JAX nor the JAX package.
 
-In a fresh interpreter where ``import jax`` (and ``import hoigen_tpu``)
-raise, every module of the port and ``chip_smoke.py`` import, and no module
-of JAX or of the JAX package appears in ``sys.modules``.
+In a fresh interpreter where ``import jax``, ``import hoigen_tpu`` and
+``import triton`` raise, every module of the port and ``chip_smoke.py``
+import, and no module of JAX, of the JAX package or of Triton appears in
+``sys.modules``.
 """
 import pathlib
 import subprocess
@@ -21,7 +22,7 @@ import importlib, sys
 
 class _Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu", "triton"):
             raise ImportError(f"{name} must not be imported by the port")
         return None
 
@@ -29,7 +30,7 @@ sys.meta_path.insert(0, _Refuse())
 for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu", "triton"))
 assert not bad, bad
 print("ok", len(sys.argv) - 1)
 """
@@ -55,7 +56,19 @@ def test_port_imports_without_jax(modules):
             "hoigen_tpu_torch.engine.partition",
             "hoigen_tpu_torch.engine.checkpoint",
             "hoigen_tpu_torch.engine.train",
-            "hoigen_tpu_torch.labels.vcoco"} <= set(PORT_MODULES)
+            "hoigen_tpu_torch.labels.vcoco",
+            # host evaluation and the data pipeline
+            "hoigen_tpu_torch.labels", "hoigen_tpu_torch.labels.hico",
+            "hoigen_tpu_torch.eval", "hoigen_tpu_torch.eval.ap",
+            "hoigen_tpu_torch.eval.association",
+            "hoigen_tpu_torch.eval.vcoco_ap", "hoigen_tpu_torch.engine.eval",
+            "hoigen_tpu_torch.data", "hoigen_tpu_torch.data.hicodet",
+            "hoigen_tpu_torch.data.vcoco", "hoigen_tpu_torch.data.transforms",
+            "hoigen_tpu_torch.data.factory", "hoigen_tpu_torch.data.samplers",
+            "hoigen_tpu_torch.data.loader", "hoigen_tpu_torch.data.detections",
+            "hoigen_tpu_torch.utils.config",
+            "hoigen_tpu_torch.cli.main_finetune",
+            "hoigen_tpu_torch.tools.make_hicodet"} <= set(PORT_MODULES)
     res = _probe(*modules)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == f"ok {len(modules)}"

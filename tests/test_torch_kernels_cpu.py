@@ -23,7 +23,7 @@ from hoigen_tpu.ops.pallas_cache import \
     fused_cache_logits as j_fused_cache_logits
 
 from hoigen_tpu_torch.ops.attention import _attn_plan, _layout_like, \
-    _pad_heads, _unpad, attention_bwd, attention_bwd_reference, \
+    _head_dim, _pad_heads, _unpad, attention_bwd, attention_bwd_reference, \
     attention_forward, attention_reference, fused_attention
 from hoigen_tpu_torch.ops.fused_resnet import _chain_plan, \
     bottleneck_chain_reference, fused_bottleneck_chain, pad_chain
@@ -266,17 +266,14 @@ def test_attention_keeps_the_callers_layout(with_bias):
         np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("layout", ["contiguous", "blhd-views"])
-@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
-def test_attention_head_padding_is_exact(with_bias, layout):
-    """Head dims other than 32 and 64 (here 48) run on the card through
-    the kernels at 64 with zero columns (_pad_heads, then _unpad): the
-    plain forward and backward on the padded operands at the caller's
-    scale 1/sqrt(48), unpadded, equal them on the originals, out and all
+def _check_head_padding(d, d_run, with_bias, layout):
+    """The plain forward and backward on operands zero-padded from head
+    dim ``d`` to ``d_run`` (_pad_heads) at the caller's scale 1/sqrt(d),
+    unpadded (_unpad), against the same on the originals: out and all
     four gradients, in the inputs' layout. f32 on both sides; only zero
     terms join the sums, so 1e-6 of each output's scale."""
     rng = np.random.default_rng(8)
-    b, h, lq, lk, d = 2, 3, 20, 27, 48
+    b, h, lq, lk = 2, 3, 20, 27
 
     def make(l):
         t = _t(rng.normal(size=(b, l, h, d)))
@@ -288,7 +285,7 @@ def test_attention_head_padding_is_exact(with_bias, layout):
     sm = 1.0 / np.sqrt(d)
     out = attention_reference(q, k, v, bias)
     padded = _pad_heads(q, k, v)
-    assert padded[0].shape == (b, h, lq, 64)
+    assert padded[0].shape == (b, h, lq, d_run)
     got = _unpad(attention_reference(*padded, bias, sm_scale=sm), q)
     assert got.shape == q.shape and got.stride() == q.stride()
     want = attention_bwd_reference(q, k, v, bias, out, g)
@@ -304,6 +301,36 @@ def test_attention_head_padding_is_exact(with_bias, layout):
         scale = wv.abs().max().item()
         np.testing.assert_allclose(gv.numpy(), wv.numpy(),
                                    atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "blhd-views"])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+def test_attention_head_padding_is_exact(with_bias, layout):
+    """Head dims other than 32 and 64 (here 48) run on the card through
+    the kernels at 64 with zero columns (_pad_heads, then _unpad)."""
+    _check_head_padding(48, 64, with_bias, layout)
+
+
+@pytest.mark.parametrize("d,d_run", [(80, 128), (128, 128), (200, 256)])
+@pytest.mark.parametrize("layout", ["contiguous", "blhd-views"])
+def test_attention_wide_head_padding_is_exact(d, d_run, layout):
+    """Head dims above 64 run on the card through the wide kernels at the
+    next multiple of 64, with zero columns."""
+    assert _head_dim(d) == d_run
+    _check_head_padding(d, d_run, True, layout)
+
+
+@pytest.mark.parametrize("d", [80, 128, 256, 320])
+@pytest.mark.parametrize("lq", [197, 64, 1])
+def test_attn_plan_of_wide_heads_covers_every_slice(d, lq):
+    """A head dim above 64 launches one block for each 64-query tile and
+    64-column slice of the padded head dim, and no ring."""
+    bq, stages, smem, grid = _attn_plan(4, 8, lq, 197, _head_dim(d),
+                                        torch.float32)
+    assert (bq, stages, smem) == (64, 0, 0)
+    assert grid == (-(-lq // 64) * (_head_dim(d) // 64), 8, 4)
+    assert [_head_dim(x) for x in (1, 32, 33, 64, 65, 128, 129)] == \
+        [32, 32, 64, 64, 128, 128, 192]
 
 
 @pytest.mark.parametrize("b,h,lq,lk,d,dtype",

@@ -49,8 +49,8 @@ from hoigen_tpu_torch.models.upt import UPTConfig as TUPTConfig, \
 from hoigen_tpu_torch.ops import _weights
 from hoigen_tpu_torch.ops import focal as tfocal
 
-from test_torch_eval_step import CLIP_KW, DETR_HW, DETR_KW, TEXT_KW, \
-    UPT_KW, _f32, _spread_bbox_head
+from torch_port_common import CLIP_KW, DETR_HW, DETR_KW, TEXT_KW, \
+    UPT_KW, f32 as _f32, spread_bbox_head as _spread_bbox_head
 
 TRAIN_UPT_KW = dict(UPT_KW, generate_feature=True)
 
