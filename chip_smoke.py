@@ -10,7 +10,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. build the hand-written kernels from ``hoigen_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the HICO-DET eval step and training step give it (the attention
+   shapes the HICO-DET eval step and training step give it, and K1 and
+   K2 at the padded buckets of phase 7's batches too (the attention
    backward through its autograd.Function, all four gradients; the CLIP
    attention on the (B, H, L, D) views of (B, L, H, D) buffers that its
    call site passes, bit for bit against contiguous copies, two backward
@@ -40,10 +41,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    orientations written to a temporary directory, with the counters set
    to 0 just before it; check the launches per batch, the buckets, the
    AP vector and that no padded row reached the meter; time the whole
-   evaluation, the loader alone, the steps and the host AP, and a second
-   pass with every batch shape's first call behind it; then run the same
-   tree through phase 4's small configuration on the card and on the CPU
-   and compare the detections and the AP vectors.
+   evaluation, the loader alone, the steps and the host AP, and four more
+   passes with every batch shape's first call behind them (their spread);
+   then run the same tree through phase 4's small configuration on the
+   card and on the CPU and compare the detections and the AP vectors.
 
 The last two lines of standard output are one JSON object of kernel
 numbers and one naming the device. Exits non-zero when no CUDA device is
@@ -260,8 +261,27 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
             / (EXP_PER_SM_PER_CLOCK * n_sm * clock_hz)),
            iters=50)
 
-    # K2: the four ResNet-50 layer tails of the DETR backbone
-    check_chain_kernels(params, b, hi, wi, gen, check, record)
+    # K1 at the other padded planes of phase 7's evaluation from disk (a
+    # portrait batch and batches of both orientations), each with the key
+    # bias of that batch's padding
+    feeds = {hw: sizes for hw, sizes in eval_feeds(b).items()
+             if hw != (hi, wi)}
+    for (ph, pw), sizes in feeds.items():
+        fh, fw = -(-ph // 32), -(-pw // 32)
+        q, k, v = (torch.randn((b, cfg.detr.nheads, fh * fw, hd),
+                               generator=gen).to(dev, bf16)
+                   for _ in range(3))
+        sizes = torch.as_tensor(sizes, device=dev)
+        kb = torch.where(downsample_mask(
+            pad_mask_from_sizes(sizes, ph, pw), fh, fw)
+            .reshape(b, fh * fw), -1e9, 0.0).float()
+        check(f"attention_fwd at the ({ph}, {pw}) bucket, "
+              f"{fh * fw} keys", fused_attention(q, k, v, kb),
+              attention_reference(q, k, v, kb))
+
+    # K2: the four ResNet-50 layer tails of the DETR backbone, and layer1's
+    # at phase 7's other planes
+    check_chain_kernels(params, b, hi, wi, gen, check, record, feeds)
 
     # K3: the H cache branch, (B, 450, 512) f32 pair features against the
     # (1200, 512) cache keys and (1200, 600) label matrix
@@ -295,13 +315,14 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
     return records
 
 
-def check_chain_kernels(params, b, hi, wi, gen, check, record):
+def check_chain_kernels(params, b, hi, wi, gen, check, record, feeds):
     """Phase 3, K2: the stride-1 tail of each ResNet-50 layer of the DETR
     backbone on the main path's conv weights, at the plane the 800x1344
     bucket gives it (layer1, (B, 200, 336, 256), is the main path's fused
     launch; layers 2-4 run the layered route), each timed against its
     plain version and against the unfused cuDNN blocks; then the layer1
-    tail at a ragged plane, a width that takes the padding route (C 200,
+    tail at the planes of the padded buckets ``feeds`` (phase 7's), at a
+    ragged plane, a width that takes the padding route (C 200,
     M 50, padded to the fused route's 256 and 64) and one that pads into
     the layered route (C 96, M 24, 3 blocks), and two calls bit for bit.
     The random frozen BN is the identity (scale 1, bias 0), which would
@@ -375,13 +396,16 @@ def check_chain_kernels(params, b, hi, wi, gen, check, record):
                       (fused_bottleneck_chain(x, blocks),))
             main_blocks = blocks
 
-    cases = {"bottleneck_chain_ragged": (inputs((2, 37, 45, 256)),
-                                         main_blocks, "fused"),
+    cases = {f"bottleneck_chain_bucket_{h}x{w}":
+             (inputs((b, h // 4, w // 4, 256)), main_blocks, "fused")
+             for h, w in feeds}
+    cases.update({"bottleneck_chain_ragged": (inputs((2, 37, 45, 256)),
+                                              main_blocks, "fused"),
              "bottleneck_chain_padded_fused": (inputs((2, 37, 45, 200)),
                                                seeded(200, 50, 2), "fused"),
              "bottleneck_chain_padded_layered": (inputs((2, 29, 19, 96)),
                                                  seeded(96, 24, 3),
-                                                 "layered")}
+                                                 "layered")})
     for name, (x, blocks, route) in cases.items():
         c, m = x.shape[-1], blocks[0]["conv1"]["w"].shape[0]
         plan = _chain_plan(*x.shape[:3], c, m, len(blocks))
@@ -906,7 +930,26 @@ EVAL_SIZES = ([(640, 427)] * 4 + [(427, 640)] * 4
 # phase 7's small configuration: the transform sizes and buckets of the
 # port's CPU tests
 SMALL_TRANSFORM = dict(eval_min_side=48, max_side=80)
+# passes of phase 7's evaluation: the first holds each batch shape's first
+# call; the rest give the spread of a pass's rate
+EVAL_PASSES = 5
 SMALL_BUCKETS = ((56, 80), (80, 56), (80, 80))
+
+
+def eval_feeds(b):
+    """{padded (H, W): the unpadded (h, w) of each row} of the first batch
+    of each plane that phase 7's tree gives at batch b, tail padded, as
+    the eval transform and ``collate_batch`` size them (no pixel read)."""
+    from hoigen_tpu_torch.data.factory import pick_bucket
+    from hoigen_tpu_torch.data.transforms import DualStreamTransform
+    plan = DualStreamTransform(training=False).plan
+    feeds = {}
+    for i in range(0, len(EVAL_SIZES), b):
+        sizes = [plan(w, h)["out_hw"] for w, h in EVAL_SIZES[i:i + b]]
+        sizes += sizes[-1:] * (b - len(sizes))
+        hw = tuple(max(d) for d in zip(*(pick_bucket(*s) for s in sizes)))
+        feeds.setdefault(hw, sizes)
+    return feeds
 
 
 def hico_factories(root, run_cfg, clip_resolution, transform_kwargs=None):
@@ -921,30 +964,41 @@ def hico_factories(root, run_cfg, clip_resolution, transform_kwargs=None):
                         seed=run_cfg.seed, **kw))
 
 
-def evaluate_from_disk(step, model, cfg, run_cfg, test, train):
+def hico_result(runs, cfg, run_cfg, test, train):
+    """``evaluate_hico`` over the (outputs, batch) stream ``runs``, with
+    the arguments the CLI passes (the rare split from the training set)."""
+    from hoigen_tpu_torch.engine.eval import evaluate_hico
+    from hoigen_tpu_torch.labels import HICO
+    return evaluate_hico(
+        runs, test.dataset, run_cfg.num_classes, cfg.upt.proposals,
+        HICO.object_n_verb_to_interaction,
+        train_anno_interaction=train.dataset.anno_interaction)
+
+
+def evaluate_from_disk(step, model, cfg, run_cfg, test, train, on_card):
     """One HICO-DET evaluation as the CLI runs it: ``eval_batches`` (tail
     padded) through ``step``, then ``evaluate_hico``. Returns (result,
-    [(outputs, batch)], {timings in s, padded shapes, per-row nonzero
-    scores of each step, detections appended to the meter})."""
+    [(outputs, batch)], {the padded shapes, the detections appended to the
+    meter and, ``on_card``, the timings in s}). The step is the plain eval
+    step: on the card a CUDA event is recorded before and after it (no
+    sync), read once the evaluation has ended."""
     import numpy as np
     import torch
 
     from hoigen_tpu_torch.cli.main_finetune import eval_batches
     from hoigen_tpu_torch.engine import eval as E
-    from hoigen_tpu_torch.labels import HICO
 
-    info = {"step_s": [], "shapes": [], "row_nonzero": [], "meter": 0,
-            "wait_s": 0.0}
+    info = {"shapes": [], "events": [], "meter": 0, "wait_s": 0.0}
 
     def timed_step(params, buffers, d):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = step(params, buffers, d)
-        torch.cuda.synchronize()
-        info["step_s"].append(time.perf_counter() - t)
         info["shapes"].append(tuple(d["images"].shape[2:]))
-        info["row_nonzero"].append(
-            (out["detection_scores"] != 0).sum((1, 2)).tolist())
+        if not on_card:
+            return step(params, buffers, d)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = step(params, buffers, d)
+        end.record()
+        info["events"].append((start, end))
         return out
 
     runs = []
@@ -969,15 +1023,28 @@ def evaluate_from_disk(step, model, cfg, run_cfg, test, train):
     meter, E.DetectionAPMeter = E.DetectionAPMeter, CountingMeter
     try:
         t0 = time.perf_counter()
-        result = E.evaluate_hico(
-            timed(eval_batches(timed_step, *model, test, run_cfg)),
-            test.dataset, run_cfg.num_classes, cfg.upt.proposals,
-            HICO.object_n_verb_to_interaction,
-            train_anno_interaction=train.dataset.anno_interaction)
+        result = hico_result(
+            timed(eval_batches(timed_step, *model, test, run_cfg)), cfg,
+            run_cfg, test, train)
         info["total_s"] = time.perf_counter() - t0
     finally:
         E.DetectionAPMeter = meter
+    if on_card:
+        torch.cuda.synchronize()
+        info["step_s"] = [s.elapsed_time(e) / 1e3
+                          for s, e in info.pop("events")]
     return result, runs, info
+
+
+def pass_record(info, n_img):
+    """The timings of one evaluation from disk, in s and ms."""
+    steps_s = float(sum(info["step_s"]))
+    return {"total_s": info["total_s"],
+            "images_per_s": n_img / info["total_s"],
+            "steps_s": steps_s,
+            "wait_beyond_steps_s": info["wait_s"] - steps_s,
+            "evaluate_hico_s": info["total_s"] - info["wait_s"],
+            "step_ms": [t * 1e3 for t in info["step_s"]]}
 
 
 def eval_from_disk_phase(model, cfg, args, card):
@@ -992,6 +1059,7 @@ def eval_from_disk_phase(model, cfg, args, card):
 
     from hoigen_tpu_torch.cli.main_finetune import batches_from_factory
     from hoigen_tpu_torch.data import factory as factory_module
+    from hoigen_tpu_torch.data.factory import slice_batch
     from hoigen_tpu_torch.engine import hoi_model as hm
     from hoigen_tpu_torch.models.cache import random_caches
     from hoigen_tpu_torch.ops.attention import fused_attention
@@ -1019,7 +1087,7 @@ def eval_from_disk_phase(model, cfg, args, card):
         for fn in wrappers:
             fn.launches = 0
         result, runs, info = evaluate_from_disk(step, model, cfg, run_cfg,
-                                                test, train)
+                                                test, train, True)
         counts = [fn.launches for fn in wrappers]
         expect = [n * n_batches for n in (6, 1, 3)]
         log(f"eval from disk: launches {counts} over {n_batches} batches, "
@@ -1038,26 +1106,31 @@ def eval_from_disk_phase(model, cfg, args, card):
                 not ((ap >= 0) & (ap <= 1)).all():
             fail(f"eval from disk: ap of shape {ap.shape}, range "
                  f"[{ap.min()}, {ap.max()}]")
-        # what the meter saw against the real rows' nonzero scores of each
-        # step (a padded row that leaks adds its copy's detections)
+        # what the meter saw against the nonzero scores of the yielded
+        # outputs, which must hold the real rows only (a padded row that
+        # leaks adds its copy's detections)
         real = [min(args.batch, n_img - i * args.batch)
                 for i in range(n_batches)]
-        want = sum(sum(rows[:n]) for rows, n in
-                   zip(info["row_nonzero"], real))
-        if info["meter"] != want or \
-                [len(b.indices) for _, b in runs] != real:
+        rows = [[len(o["detection_scores"]), len(b.indices)]
+                for o, b in runs]
+        want = sum(int((o["detection_scores"] != 0).sum()) for o, _ in runs)
+        if info["meter"] != want or rows != [[n, n] for n in real]:
             fail(f"eval from disk: {info['meter']} detections reached the "
-                 f"meter, the real rows hold {want}; rows {real}")
+                 f"meter, the yielded outputs hold {want}; rows (outputs, "
+                 f"batch) {rows}, real {real}")
         log(f"eval from disk: {info['meter']} detections reached the meter "
             f"({want} nonzero scores in the real rows) ok")
 
-        # the same evaluation again, each batch shape's first call behind
-        # it: the same AP, and the time of a pass in the steady state
-        again, _, warm = evaluate_from_disk(step, model, cfg, run_cfg, test,
-                                            train)
-        if not np.array_equal(again["ap"], result["ap"]) or \
-                warm["meter"] != info["meter"]:
-            fail("eval from disk: a second pass gives another AP vector")
+        # more passes over the same tree, each batch shape's first call
+        # behind them: the same AP, and the spread of a pass's rate
+        passes = [pass_record(info, n_img)]
+        for _ in range(EVAL_PASSES - 1):
+            again, _, warm = evaluate_from_disk(step, model, cfg, run_cfg,
+                                                test, train, True)
+            if not np.array_equal(again["ap"], result["ap"]) or \
+                    warm["meter"] != info["meter"]:
+                fail("eval from disk: another pass gives another AP vector")
+            passes.append(pass_record(warm, n_img))
 
         # the loader alone: one pass of batches_from_factory, no step
         t0 = time.perf_counter()
@@ -1065,53 +1138,50 @@ def eval_from_disk_phase(model, cfg, args, card):
                                       shuffle=False, pad_tail=True):
             pass
         loader_s = time.perf_counter() - t0
-        steps_s = float(sum(info["step_s"]))
-        host_s = info["total_s"] - info["wait_s"]
+        first = passes[0]
+        warm_rates = [p["images_per_s"] for p in passes[1:]]
         record = {
             "images": n_img, "batch": args.batch, "batches": n_batches,
             "buckets": [list(b) for b in buckets],
             "mAP": result["mAP"], "mAP_rare": result["mAP_rare"],
             "mAP_non_rare": result["mAP_non_rare"],
             "detections": info["meter"],
-            "total_s": info["total_s"],
-            "images_per_s": n_img / info["total_s"],
-            "loader_alone_s": loader_s, "steps_s": steps_s,
-            "wait_beyond_steps_s": info["wait_s"] - steps_s,
-            "evaluate_hico_s": host_s,
-            "step_images_per_s": args.batch * n_batches / steps_s,
-            "step_ms": [t * 1e3 for t in info["step_s"]],
-            "second_pass": {
-                "total_s": warm["total_s"],
-                "images_per_s": n_img / warm["total_s"],
-                "steps_s": float(sum(warm["step_s"])),
-                "wait_beyond_steps_s": warm["wait_s"] - sum(warm["step_s"]),
-                "evaluate_hico_s": warm["total_s"] - warm["wait_s"],
-                "step_ms": [t * 1e3 for t in warm["step_s"]]},
+            "total_s": first["total_s"],
+            "images_per_s": first["images_per_s"],
+            "warm_images_per_s": {
+                "median": float(np.median(warm_rates)),
+                "min": min(warm_rates), "max": max(warm_rates)},
+            "loader_alone_s": loader_s, "steps_s": first["steps_s"],
+            "wait_beyond_steps_s": first["wait_beyond_steps_s"],
+            "evaluate_hico_s": first["evaluate_hico_s"],
+            "step_images_per_s": args.batch * n_batches / first["steps_s"],
+            "step_ms": first["step_ms"],
+            "passes": passes,
             "launches": dict(zip(("attention_fwd", "bottleneck_chain_fwd",
                                   "cache_logits_fwd"), counts)),
             "card": card}
         log(f"eval from disk: mAP {result['mAP']:.6f}, rare "
             f"{result['mAP_rare']:.6f}, non-rare "
             f"{result['mAP_non_rare']:.6f} (random weights)")
-        log(f"eval from disk: {n_img} images in {info['total_s']:.3f} s, "
-            f"{record['images_per_s']:.2f} images/s from the first fetch to "
-            f"the result, on {card}")
-        step_ms = ", ".join(f"{t:.1f}" for t in record["step_ms"])
-        log(f"eval from disk: time split: loader alone {loader_s:.3f} s; "
-            f"steps {steps_s:.3f} s (ms {step_ms}); waiting on the loader "
-            f"beyond the steps {record['wait_beyond_steps_s']:.3f} s; "
-            f"evaluate_hico's own time (association and AP) {host_s:.3f} s")
+        log(f"eval from disk: loader alone {loader_s:.3f} s a pass; "
+            "steps by CUDA events around each (no sync)")
+        for i, p in enumerate(passes):
+            log(f"eval from disk, pass {i + 1} of {len(passes)}"
+                f"{' (first calls of each shape)' if i == 0 else ''}: "
+                f"{n_img} images in {p['total_s']:.3f} s, "
+                f"{p['images_per_s']:.2f} images/s from the first fetch to "
+                f"the result; steps {p['steps_s']:.3f} s (ms "
+                f"{', '.join(f'{t:.1f}' for t in p['step_ms'])}); waiting "
+                f"beyond the steps {p['wait_beyond_steps_s']:.3f} s; "
+                f"evaluate_hico's own time {p['evaluate_hico_s']:.3f} s")
+        w = record["warm_images_per_s"]
+        log(f"eval from disk: passes 2-{len(passes)} at {w['median']:.2f} "
+            f"images/s (median; min {w['min']:.2f}, max {w['max']:.2f}), on "
+            f"{card}")
         log(f"eval from disk: the step alone at "
             f"{record['step_images_per_s']:.2f} images/s over {n_batches} "
-            f"padded batches of {args.batch} (phase 5: the line 'main path: "
-            "eval step')")
-        sp = record["second_pass"]
-        log(f"eval from disk, second pass (the same AP vector): "
-            f"{sp['total_s']:.3f} s, {sp['images_per_s']:.2f} images/s; "
-            f"steps {sp['steps_s']:.3f} s (ms "
-            f"{', '.join(f'{t:.1f}' for t in sp['step_ms'])}); waiting on "
-            f"the loader beyond the steps {sp['wait_beyond_steps_s']:.3f} s; "
-            f"evaluate_hico's own time {sp['evaluate_hico_s']:.3f} s")
+            f"padded batches of {args.batch} in the first pass (phase 5: "
+            "the line 'main path: eval step')")
 
         # the small configuration, card against CPU, on the same tree
         small = tiny_config()
@@ -1121,6 +1191,10 @@ def eval_from_disk_phase(model, cfg, args, card):
         saved = factory_module.DEFAULT_BUCKETS
         factory_module.DEFAULT_BUCKETS = SMALL_BUCKETS
 
+        def small_factories():
+            return hico_factories(root, small_cfg, small.upt.clip_resolution,
+                                  SMALL_TRANSFORM)
+
         def small_run(device):
             params, buffers = hm.init_hoi_model(
                 torch.Generator().manual_seed(args.seed), small, caches,
@@ -1129,22 +1203,25 @@ def eval_from_disk_phase(model, cfg, args, card):
             # f32 DETR's boxes on these images are all zero-height, and no
             # detection could match a ground-truth pair
             spread_detection_heads(params, args.seed, scale=6.0)
-            test_s, train_s = hico_factories(
-                root, small_cfg, small.upt.clip_resolution, SMALL_TRANSFORM)
             return evaluate_from_disk(
                 hm.make_eval_step(small, device=device), (params, buffers),
-                small, small_cfg, test_s, train_s)
+                small, small_cfg, *small_factories(), device == "cuda")
 
         try:
+            _, cruns, cinfo = small_run("cpu")
             # the CPU run's own detections become the ground truth, so
-            # that the AP vectors compared are not zero
-            annotate_from_detections(root, small_run("cpu")[1],
-                                     small.upt.proposals)
-            outs = {device: small_run(device) for device in ("cpu", "cuda")}
+            # that the AP vectors compared are not zero; its outputs are
+            # scored again against the rewritten tree's batches
+            annotate_from_detections(root, cruns, small.upt.proposals)
+            test_s, train_s = small_factories()
+            batches = [slice_batch(b, b.n_real) for _, b in
+                       batches_from_factory(test_s, args.batch, small_cfg,
+                                            shuffle=False, pad_tail=True)]
+            cres = hico_result(zip((o for o, _ in cruns), batches), small,
+                               small_cfg, test_s, train_s)
+            gres, gruns, ginfo = small_run("cuda")
         finally:
             factory_module.DEFAULT_BUCKETS = saved
-        (cres, cruns, cinfo), (gres, gruns, ginfo) = outs["cpu"], \
-            outs["cuda"]
         if cinfo["shapes"] != ginfo["shapes"] or \
                 not {(80, 80), (80, 56)} & set(ginfo["shapes"]) or \
                 not ginfo["meter"] or not np.max(cres["ap"]) > 0:

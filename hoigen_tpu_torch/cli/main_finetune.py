@@ -74,7 +74,10 @@ def eval_batches(eval_step, params, buffers, factory, cfg: RunConfig):
     ``slice_batch(batch, n_real)``) for every batch of ``factory`` in
     order, tail padded to ``cfg.batch_size``: the ``run_batches`` loop of
     the JAX ``main``, with its one batch of lookahead (batch N is yielded
-    after step N + 1 has run). ``eval_step`` is
+    after step N + 1 has run). Each step's outputs are copied to the host
+    (a sync) before the next step is dispatched, as the JAX loop does, so
+    the lookahead delays the yield but overlaps no card work with the
+    caller's host AP. ``eval_step`` is
     ``engine/hoi_model.py::make_eval_step``'s. The padded rows never reach
     the caller, so ``evaluate_hico`` counts each image once."""
     prev = None

@@ -61,13 +61,13 @@ def f32(tree):
         if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
 
 
-def spread_bbox_head(frozen, scale=6.0):
+def spread_bbox_head(frozen):
     """A random-init DETR emits near-identical boxes for every query, so
     NMS keeps one and no pairs form; spread the box head as the JAX
     package's tiny dryrun does."""
     last = frozen["detr"]["bbox_embed"][-1]
     frozen["detr"]["bbox_embed"][-1] = {
-        "w": last["w"] * scale,
+        "w": last["w"] * 6.0,
         "b": last["b"] + jnp.asarray(
             np.random.default_rng(0).normal(0, 1.0, last["b"].shape),
             last["b"].dtype)}
