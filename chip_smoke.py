@@ -44,15 +44,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    evaluation, the loader alone, the steps and the host AP, and four more
    passes with every batch shape's first call behind them (their spread);
    then run the same tree through phase 4's small configuration on the
-   card and on the CPU and compare the detections and the AP vectors.
+   card and on the CPU and compare the detections and the AP vectors;
+8. run the CLI (``cli/main_finetune.py::main``) at full width as the
+   repro scripts do (117 classes, RF-UC zero-shot, bf16 towers, the
+   generated cache with the synthesis cut to 2 rounds), in a temporary
+   working directory, from checkpoint files written from ``--seed``
+   (ViT-B/16 CLIP with its text tower, DETR-R50, DINO-R50, a pair
+   pickle) and phase 7's tree: an epoch of training, then --eval and
+   --cache resumed from its checkpoint, each with the counters set to 0
+   just before it; check the launches, the losses, the AP vector and the
+   .mat files, and time each run, its stages and the synthesis against
+   its f32 bound; then V-COCO --eval at phase 4's small configuration on
+   the card and on the CPU, whose role APs must agree.
 
 The last two lines of standard output are one JSON object of kernel
 numbers and one naming the device. Exits non-zero when no CUDA device is
 present or the repository is not beside the script.
 """
 import argparse
+import dataclasses
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -1359,6 +1372,378 @@ def train_path(model, batch, cfg, warmup, steps, seed):
             trainer)
 
 
+# ------------------------------------------------------- the CLI end to end
+# the repro scripts' flags (scripts/repro_common.sh) for HICO-DET's RF-UC
+# zero-shot run, with the synthesis cut from the CLI's 100 rounds to 2
+CLI_FLAGS = ["--num-classes", "117", "--use-multi-hot", "true",
+             "--dtype", "bfloat16", "--zs", "true", "--zs-type",
+             "rare_first"]
+CLI_GEN_ROUNDS = 2
+# H100 SXM float32 peak outside the tensor cores (the synthesis runs in
+# full f32, TF32 off)
+F32_FLOPS = 67e12
+
+
+def text_tower_flops(clip_cfg):
+    """Operations of one sequence through the text tower, as computed
+    (the causal scores and products in full): per token and layer 24 w^2
+    for the projections and the 4x MLP, 4 n w for the scores and the
+    weighted sum."""
+    w, n = clip_cfg.transformer_width, clip_cfg.context_length
+    return (24 * w * w + 4 * n * w) * clip_cfg.transformer_layers * n
+
+
+class FunctionTimes:
+    """While active, each named function of ``module`` adds its wall time
+    (from a synchronised start to a synchronised end) to ``self.s[name]``
+    and counts its calls in ``self.calls[name]``."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.s = {n: 0.0 for n in names}
+        self.calls = {n: 0 for n in names}
+
+    def __enter__(self):
+        import torch
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for name, fn in self.saved.items():
+            def timed(*args, _name=name, _fn=fn, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    self.s[_name] += time.perf_counter() - t0
+                    self.calls[_name] += 1
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def check_mat_files(cache_dir, n_images):
+    """The 80 official .mat files of a HICO-DET --cache run: each holds
+    ``all_boxes`` of (the object's interactions, n_images) entries, each
+    empty or (n, 9) finite rows (human box, object box, score) whose
+    boxes have x2 >= x1 - 1 and y2 >= y1 - 1 (the official format's
+    corners are pixel indices, the inclusive ones less 1). Returns the
+    number of rows."""
+    import numpy as np
+    import scipy.io as sio
+
+    from hoigen_tpu_torch.labels import HICO
+    rows = 0
+    for obj in range(80):
+        path = os.path.join(cache_dir, f"detections_{obj + 1:02d}.mat")
+        if not os.path.isfile(path):
+            fail(f"cli cache: {path} is missing")
+        boxes = sio.loadmat(path)["all_boxes"]
+        if boxes.shape != (len(HICO.object_to_interaction[obj]), n_images):
+            fail(f"cli cache: {path} holds {boxes.shape}")
+        for e in boxes.ravel():
+            if not e.size:
+                continue
+            if e.shape[1] != 9 or not np.isfinite(e).all() or \
+                    (e[:, [2, 3, 6, 7]] < e[:, [0, 1, 4, 5]] - 1).any():
+                fail(f"cli cache: {path} holds a malformed entry")
+            rows += len(e)
+    return rows
+
+
+def cli_run(mf, argv, wrappers):
+    """``main(parse_config(argv))`` with the launch counters set to 0 just
+    before and read just after, its stages timed. Returns (result,
+    seconds, counts, {stage: seconds}, {stage: calls})."""
+    import torch
+
+    from hoigen_tpu_torch.models import generator
+    from hoigen_tpu_torch.utils.config import parse_config
+    cfg = parse_config(argv)
+    for fn in wrappers:
+        fn.launches = 0
+    with FunctionTimes(mf, ("load_pretrained", "encode_class_texts",
+                            "maybe_gen_features", "init_hoi_model",
+                            "evaluate_hico", "cache_hico")) as times, \
+            FunctionTimes(generator, ("synthesize_features",)) as synth:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = mf.main(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return (result, seconds, [fn.launches for fn in wrappers],
+            times.s | synth.s, times.calls | synth.calls)
+
+
+def small_vcoco_config(cfg, device=None):
+    """Phase 4's small float32 configuration for a V-COCO run of the CLI:
+    the COCO detector's 92 logits, a 2-layer text tower of width 64."""
+    cfg4 = tiny_config()
+    return dataclasses.replace(
+        cfg4, clip=dataclasses.replace(cfg4.clip, transformer_layers=2,
+                                       transformer_width=64),
+        detr=dataclasses.replace(cfg4.detr, num_classes=92),
+        upt=dataclasses.replace(cfg4.upt, num_classes=cfg.num_classes,
+                                generate_feature=False))
+
+
+def vcoco_card_and_cpu(mf, work, seed, batch):
+    """``main --eval`` of V-COCO at the small configuration from the same
+    files, on the CPU, whose detections then become the ground truth (so
+    that the APs compared are not zero), then on the card and on the CPU
+    again: the detections index for index (boxes and scores within 2e-4
+    of their scale) and every number of the two role-AP reports within
+    1e-6. Returns a record."""
+    import functools
+
+    import numpy as np
+
+    from hoigen_tpu_torch.data import factory as factory_module
+    from hoigen_tpu_torch.tools.make_checkpoints import write_checkpoints
+    from hoigen_tpu_torch.tools.make_vcoco import \
+        annotate_vcoco_from_detections, build_vcoco
+    from hoigen_tpu_torch.utils.config import RunConfig
+
+    root = build_vcoco(os.path.join(work, "vcoco"), n_images=8, seed=seed)
+    small = small_vcoco_config(RunConfig(dataset="vcoco", num_classes=24))
+    saved = (mf.make_model_config, mf.DataFactory, mf.evaluate_vcoco,
+             factory_module.DEFAULT_BUCKETS)
+    runs, reports = {}, {}
+
+    def files(file_seed):
+        # the person in slot 1 of the 92 logits; the box head spread by 6
+        # (by more, the small DETR's boxes at 64 x 48 pixels have no area)
+        return write_checkpoints(os.path.join(work, f"vcoco_{file_seed}"),
+                                 small.clip, small.detr, seed=file_seed,
+                                 dino=False, spread=6.0, human=1)
+
+    current = {}
+
+    def capture(stream, *args, **kw):
+        runs[current["run"]] = list(stream)
+        return saved[2](iter(runs[current["run"]]), *args, **kw)
+
+    mf.make_model_config = small_vcoco_config
+    mf.DataFactory = functools.partial(
+        factory_module.DataFactory, clip_resolution=small.upt.clip_resolution,
+        transform_kwargs=SMALL_TRANSFORM)
+    mf.evaluate_vcoco = capture
+    factory_module.DEFAULT_BUCKETS = SMALL_BUCKETS
+    def evaluate(run, device, paths):
+        current["run"] = run
+        cfg = RunConfig(dataset="vcoco", data_root=root, num_classes=24,
+                        batch_size=batch, eval=True, seed=seed,
+                        generate_feature=False,
+                        clip_model_path=paths["clip"],
+                        pretrained_detr=paths["detr"],
+                        dino_pretrained=os.path.join(work, "absent"),
+                        output_dir=os.path.join(work, f"vcoco_{run}"))
+        t0 = time.perf_counter()
+        reports[run] = mf.main(cfg, device=device)
+        log(f"cli vcoco: --eval on {device} in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    try:
+        # the random small DETR of some seeds gives every query one box,
+        # and no pair forms: the files of the first of five seeds whose
+        # DETR finds pairs on the CPU, whose detections then become the
+        # ground truth
+        for file_seed in range(seed, seed + 5):
+            paths = files(file_seed)
+            evaluate("first", "cpu", paths)
+            if annotate_vcoco_from_detections(root, runs["first"],
+                                              small.upt.proposals):
+                break
+        else:
+            fail("cli vcoco: no pair was detected from five seeds' files")
+        log(f"cli vcoco: the files of seed {file_seed}")
+        for run in ("cuda", "cpu"):
+            evaluate(run, run, paths)
+    finally:
+        (mf.make_model_config, mf.DataFactory, mf.evaluate_vcoco,
+         factory_module.DEFAULT_BUCKETS) = saved
+    worst = 0.0
+    n_det = 0
+    for (go, gb), (co, cb) in zip(runs["cuda"], runs["cpu"]):
+        if not np.array_equal(gb.indices, cb.indices):
+            fail("cli vcoco: the batches differ between card and CPU")
+        for k in ("pair_valid", "objects", "detection_verbs"):
+            if not np.array_equal(go[k], co[k]):
+                fail(f"cli vcoco: {k} differs between card and CPU")
+        for k in ("boxes", "detection_scores"):
+            err = float(np.abs(go[k] - co[k]).max())
+            if not err <= 2e-4 * max(1.0, float(np.abs(co[k]).max())):
+                fail(f"cli vcoco: {k} differs by {err:.3e}")
+            worst = max(worst, err)
+        n_det += int((co["detection_scores"] > 0).sum())
+    if len(runs["cuda"]) != len(runs["cpu"]) or not n_det:
+        fail(f"cli vcoco: {len(runs['cuda'])} / {len(runs['cpu'])} batches, "
+             f"{n_det} detections")
+
+    def numbers(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from numbers(v, path + (k,))
+        elif isinstance(tree, (int, float, np.number, np.ndarray)):
+            yield path, np.asarray(tree, np.float64)
+
+    got, want = dict(numbers(reports["cuda"])), dict(numbers(reports["cpu"]))
+    if got.keys() != want.keys() or not got:
+        fail("cli vcoco: the reports differ in their keys")
+    ap_err = max(float(np.abs(got[p] - want[p]).max(initial=0.0))
+                 for p in got)
+    means = {k: reports["cuda"][k]["mean"] for k in
+             ("role_ap_scenario_1", "role_ap_scenario_2", "agent_ap")}
+    if not ap_err <= 1e-6 or not means["role_ap_scenario_1"] > 0:
+        fail(f"cli vcoco: the role APs differ by {ap_err:.3e} (card: "
+             f"{means})")
+    log(f"cli vcoco: {len(runs['cuda'])} batches, {n_det} detections, "
+        f"indices equal, boxes and scores within {worst:.3e}; role APs "
+        f"{means} on the card, every number of the reports within "
+        f"{ap_err:.3e} of the CPU's ok")
+    return {"file_seed": file_seed, "detections": n_det,
+            "max_abs_err": worst, "report_max_abs_diff": ap_err,
+            "means": means}
+
+
+def cli_phase(args, card):
+    """Phase 8: ``cli/main_finetune.py::main`` at full width from files on
+    disk, in a temporary working directory: an epoch of training, then
+    --eval and --cache resumed from its checkpoint, each with the launch
+    counters set to 0 just before; then V-COCO at the small configuration
+    on the card and on the CPU. Returns the ``cli_run`` record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.cli import main_finetune as mf
+    from hoigen_tpu_torch.ops.attention import attention_bwd, \
+        fused_attention
+    from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
+    from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
+    from hoigen_tpu_torch.tools.make_checkpoints import write_checkpoints
+    from hoigen_tpu_torch.tools.make_hicodet import write_hicodet
+    from hoigen_tpu_torch.utils.config import parse_config
+
+    t8 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cli_")
+    cwd = os.getcwd()
+    names = ("attention_fwd", "attention_bwd", "bottleneck_chain_fwd",
+             "cache_logits_fwd")
+    wrappers = (fused_attention, attention_bwd, fused_bottleneck_chain,
+                fused_cache_logits)
+    record = {"card": card, "gen_rounds": CLI_GEN_ROUNDS,
+              "flags": " ".join(CLI_FLAGS)}
+    try:
+        # the CLI writes caches/dataset/ and args.json where it runs
+        os.chdir(work)
+        data = write_hicodet(os.path.join(work, "hicodet"), EVAL_SIZES,
+                             seed=args.seed)
+        out, cache_out = (os.path.join(work, d) for d in ("run", "cache"))
+        model_cfg = mf.make_model_config(parse_config(CLI_FLAGS))
+        t0 = time.perf_counter()
+        paths = write_checkpoints(
+            os.path.join(work, "ckpt"), model_cfg.clip, model_cfg.detr,
+            seed=args.seed, image_names=[
+                f"HICO_train2015_{i:08d}.jpg" for i in range(len(EVAL_SIZES))])
+        record["write_files_s"] = time.perf_counter() - t0
+        record["file_mb"] = {k: os.path.getsize(p) / 2 ** 20
+                             for k, p in paths.items()}
+        log(f"cli: wrote the checkpoint files in {record['write_files_s']:.1f}"
+            f" s ({', '.join(f'{k} {v:.0f} MB' for k, v in record['file_mb'].items())})")
+        argv = CLI_FLAGS + [
+            "--data-root", data, "--output-dir", out,
+            "--gen-rounds", str(CLI_GEN_ROUNDS),
+            "--clip-model-path", paths["clip"],
+            "--pretrained-detr", paths["detr"],
+            "--dino-pretrained", paths["dino"], "--file1", paths["pairs"],
+            "--gen-ckpt-dir", os.path.join(work, "generators"),
+            "--batch-size", str(args.batch), "--epochs", "1",
+            "--print-interval", "100", "--seed", str(args.seed)]
+        seqs = 3 * CLI_GEN_ROUNDS * 600
+        flops = seqs * text_tower_flops(model_cfg.clip)
+        bound_s = flops / F32_FLOPS
+        record.update(synthesis_sequences=seqs, synthesis_flops=flops,
+                      synthesis_bound_s=bound_s, runs={})
+        for mode, extra in (
+                ("train", []),
+                ("eval", ["--eval", "true", "--resume", out]),
+                ("cache", ["--cache", "true", "--resume", out,
+                           "--output-dir", cache_out])):
+            result, seconds, counts, stage_s, calls = cli_run(
+                mf, argv + extra, wrappers)
+            launches = dict(zip(names, counts))
+            synth_s = stage_s["synthesize_features"]
+            run = {"seconds": seconds, "launches": launches,
+                   "stages_s": stage_s, "calls": calls,
+                   "synthesis_sequences_per_s": seqs / synth_s,
+                   "synthesis_share_of_bound": bound_s / synth_s}
+            if mode == "train":
+                steps = result.iteration
+                # K1: 6 in DETR's encoder (bf16) and 12 in CLIP; K3 3 a
+                # step: the CLI's batches carry no generated pairs
+                expect = [18 * steps, 12 * steps, steps, 3 * steps]
+                losses = list(result._losses)
+                if not steps or not all(np.isfinite(losses)) or \
+                        not os.path.isfile(os.path.join(
+                            out, f"ckpt_{steps:08d}.pt")):
+                    fail(f"cli train: {steps} steps, losses {losses}")
+                run.update(steps=steps, losses=losses)
+                del result
+            else:
+                # the test partition at batch args.batch, tail padded
+                n_b = -(-len(EVAL_SIZES) // args.batch)
+                expect = [6 * n_b, 0, n_b, 3 * n_b]
+                run["batches"] = n_b
+            if mode == "eval":
+                ap = np.asarray(result["ap"])
+                if ap.shape != (600,) or not np.isfinite(ap).all() or \
+                        not ((ap >= 0) & (ap <= 1)).all() or \
+                        "mAP_unseen" not in result:
+                    fail(f"cli eval: ap of shape {ap.shape}, keys "
+                         f"{sorted(result)}")
+                run.update({k: result[k] for k in (
+                    "mAP", "mAP_rare", "mAP_non_rare", "mAP_unseen",
+                    "mAP_seen")})
+            if mode == "cache":
+                run["mat_rows"] = check_mat_files(cache_out,
+                                                  len(EVAL_SIZES))
+                if not run["mat_rows"]:
+                    fail("cli cache: the .mat files hold no detection")
+            if counts != expect:
+                fail(f"cli {mode}: launches {launches}, expected "
+                     f"{dict(zip(names, expect))}")
+            record["runs"][mode] = run
+            log(f"cli {mode}: main in {seconds:.2f} s; launches {launches} "
+                f"as expected; " + ", ".join(
+                    f"{k} {v:.3f} s ({calls[k]}x)"
+                    for k, v in stage_s.items() if calls[k]))
+            log(f"cli {mode}: synthesis of {seqs} sequences in "
+                f"{synth_s:.3f} s, {seqs / synth_s:.0f} sequences/s, "
+                f"{100 * bound_s / synth_s:.1f}% of the f32 bound "
+                f"({bound_s:.3f} s at {flops / 1e12:.1f} TFLOP) on {card}")
+            if mode == "train":
+                log(f"cli train: {run['steps']} steps, losses "
+                    f"{', '.join(f'{x:.5f}' for x in run['losses'])}")
+            elif mode == "eval":
+                log(f"cli eval: mAP {run['mAP']:.6f}, unseen "
+                    f"{run['mAP_unseen']:.6f} (random weights)")
+            else:
+                log(f"cli cache: 80 .mat files, {run['mat_rows']} rows ok")
+            torch.cuda.empty_cache()
+        record["vcoco"] = vcoco_card_and_cpu(mf, work, args.seed, args.batch)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t8
+    log(f"phase 8 took {record['seconds']:.1f} s")
+    return record
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -1402,6 +1787,8 @@ def main():
             log(f"  {name}: {kernel}: {regs} registers, {spill_st} bytes "
                 f"spill stores, {spill_ld} bytes spill loads")
 
+    log(f"phases 1 and 2 took {time.perf_counter() - t_start:.1f} s")
+
     # the full-width model and feed of the eval main path (bench.py's
     # setup), and of the training path (the flagship: f32 towers, 117
     # classes, generated pairs; the towers' frozen DETR and DINO weights
@@ -1442,13 +1829,18 @@ def main():
                    for k, v in train_batch.items()}
 
     # phase 3: kernels against their plain versions
+    t3 = time.perf_counter()
     records = check_kernels(model, batch, cfg, train_model, train_cfg,
                             clock_hz)
+    log(f"phase 3 took {time.perf_counter() - t3:.1f} s")
 
     # phase 4: small input, card against CPU
+    t4 = time.perf_counter()
     small_reference_check(args.seed)
+    log(f"phase 4 took {time.perf_counter() - t4:.1f} s")
 
     # phase 5: the main path
+    t5 = time.perf_counter()
     counts, times, out = main_path(model, batch, cfg, args.warmup,
                                    args.steps)
     per_step = (6, 1, 3)          # encoder layers, layer1 tail, H/O/U
@@ -1490,6 +1882,7 @@ def main():
         "main path", profile_steps(lambda: step(*model, batch),
                                    args.profile_steps),
         args.profile_steps, mean_ms)
+    log(f"phase 5 took {time.perf_counter() - t5:.1f} s")
     eval_step = {"batch": args.batch, "steps": len(ms), "mean_ms": mean_ms,
                  "median_ms": median_ms, "q1_ms": q1, "q3_ms": q3,
                  "images_per_s": images_per_s, "device_busy_ms": busy_ms,
@@ -1547,11 +1940,20 @@ def main():
 
     # phase 7: the HICO-DET evaluation from disk
     eval_run = eval_from_disk_phase(model, cfg, args, card)
+
+    # phase 8: the CLI end to end
+    del model, train_model, trainer
+    torch.cuda.empty_cache()
+    cli = cli_phase(args, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for rec in records:
         # records off the main path (K2's layer2-4 tails) launched 0 times
         rec["launches"] = launches.get(rec["name"], 0)
+        # each wrapper's launches in phase 8's runs of the CLI, on the
+        # record of its main-path shape
+        rec["launches_cli"] = {mode: run["launches"].get(rec["name"], 0)
+                               for mode, run in cli["runs"].items()}
         if rec["source"].endswith("fused_resnet.cu"):
             # {kernel: (registers, spill store bytes, spill load bytes)}
             rec["ptxas"] = ptxas.get("fused_resnet", {})
@@ -1563,7 +1965,7 @@ def main():
                            "images_per_s": timages, "device_busy_ms": tbusy,
                            "first_loss": losses[0], "last_loss": losses[-1],
                            "card": card},
-            "eval_run": eval_run}
+            "eval_run": eval_run, "cli_run": cli}
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

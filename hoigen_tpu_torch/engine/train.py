@@ -16,6 +16,18 @@ def _key(path):
     return "/".join(str(p) for p in path)
 
 
+def load_trainable(params, path: str) -> None:
+    """Write the trainable parameters saved at ``path`` (a checkpoint of
+    :meth:`Trainer.state`) into ``params`` in place; the rest of the
+    saved state (optimizer, counters) is not read."""
+    leaves = trainable_leaves(params)
+    state = restore_checkpoint(
+        path, {"trainable": {_key(p): t for p, t in leaves}}, partial=True)
+    with torch.no_grad():
+        for p, t in leaves:
+            t.copy_(state["trainable"][_key(p)])
+
+
 class Trainer:
     """``train_step`` and ``optimizer`` as from
     ``engine.hoi_model.make_train_step`` and ``make_optimizer``; the step
@@ -49,10 +61,8 @@ class Trainer:
         """Resume the full training state saved at ``path``: the trainable
         parameters are written into ``params`` in place (the optimizer
         holds them), then the optimizer state and the counters."""
+        load_trainable(self.params, path)
         state = restore_checkpoint(path)
-        with torch.no_grad():
-            for p, t in trainable_leaves(self.params):
-                t.copy_(state["trainable"][_key(p)])
         self.optimizer.load_state_dict(state["opt_state"])
         self.iteration = int(state["iteration"])
         self.epoch = int(state["epoch"])

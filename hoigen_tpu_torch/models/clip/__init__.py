@@ -1,1 +1,2 @@
-"""Adapter-CLIP ViT image tower (port of hoigen_tpu.models.clip)."""
+"""Adapter-CLIP: the ViT image tower, the text tower, the BPE tokenizer
+and the checkpoint converter (port of hoigen_tpu.models.clip)."""

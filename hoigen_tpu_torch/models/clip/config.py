@@ -1,6 +1,6 @@
-"""CLIP image-tower configuration (the ViT fields of
-``hoigen_tpu/models/clip/config.py``, with its defaults; the text tower and
-the ModifiedResNet tower are not part of the port yet)."""
+"""CLIP configuration: the ViT image tower's and the text tower's fields
+of ``hoigen_tpu/models/clip/config.py``, with its defaults (the
+ModifiedResNet tower is not part of the port yet)."""
 import dataclasses
 from typing import Tuple
 
@@ -12,6 +12,12 @@ class CLIPConfig:
     vision_layers: int = 12
     vision_width: int = 768
     vision_patch_size: int = 16
+    # the causal text transformer (class-text encodes, feature synthesis)
+    context_length: int = 77
+    vocab_size: int = 49408
+    transformer_width: int = 512
+    transformer_heads: int = 8
+    transformer_layers: int = 12
     # instance-adapter settings (CLIP_models_adapter_prior2.py:423-459,934-967)
     use_adapter: bool = True
     adapter_layers: Tuple[int, ...] = tuple(range(12))
@@ -32,6 +38,26 @@ class CLIPConfig:
     @property
     def grid_size(self) -> int:
         return self.image_resolution // self.vision_patch_size
+
+    @staticmethod
+    def adapter_layer_ids(adapter_pos: str, vision_layers: int, rng=None):
+        """'all' | 'front' | 'end' | 'last' | 'random' -> layer index tuple
+        (CLIP_models_adapter_prior2.py:958-967); 'random' draws from
+        ``rng`` (a ``random.Random``), else from the ``random`` module."""
+        if adapter_pos == "all":
+            return tuple(range(vision_layers))
+        if adapter_pos == "front":
+            return tuple(range(vision_layers // 2))
+        if adapter_pos == "end":
+            return tuple(range(vision_layers // 2, vision_layers))
+        if adapter_pos == "last":
+            return (vision_layers - 1,)
+        if adapter_pos == "random":
+            import random as _random
+            r = rng or _random
+            return tuple(r.randint(0, vision_layers - 1)
+                         for _ in range(vision_layers // 2))
+        raise ValueError(adapter_pos)
 
 
 VIT_B16 = CLIPConfig()

@@ -1,4 +1,4 @@
-"""Adapter-CLIP ViT image tower (port of the image path of
+"""Adapter-CLIP: the ViT image tower and the causal text tower (port of
 ``hoigen_tpu/models/clip/model.py``).
 
 Plain functions over nested parameter dicts with the JAX package's key
@@ -9,8 +9,10 @@ whatever the activation dtype. Dropout (the adapters') runs only when a
 ``torch.Generator`` is given, as the JAX package's runs only with an rng.
 With ``cfg.fused_attention`` the blocks' self-attention goes through the
 fused attention kernels (``ops/attention.py``), whose backward is K4; the
-eval step turns it off, as the JAX package's does. The text tower and the
-ModifiedResNet tower come with later slices.
+eval step turns it off, as the JAX package's does. The text tower's
+self-attention takes a causal additive mask, so it runs the plain ``mha``
+(the fused kernels take a per-key bias, not a mask), as in JAX. The
+ModifiedResNet tower comes with a later slice.
 """
 import math
 
@@ -178,6 +180,34 @@ def encode_image(params, images, cfg: CLIPConfig, prior=None,
     return x[:, 0, :], x[:, 1:, :].reshape(b, gh, gw, -1)
 
 
+def _causal_mask(length, device=None):
+    return torch.triu(torch.full((length, length), float("-inf"),
+                                 device=device), diagonal=1)
+
+
+def text_encoder_forward(params, token_embeds, eot_idx, cfg: CLIPConfig):
+    """The text path shared by raw tokens and learned prompts
+    (CLIP.encode_text / TextEncoder). token_embeds: (N, L, width), any
+    learned context included; eot_idx: (N,) the position whose feature is
+    projected. -> (N, embed_dim)."""
+    p = params["text"]
+    x = token_embeds + p["positional_embedding"].to(token_embeds.dtype)
+    mask = _causal_mask(x.shape[1], x.device)
+    for bp in p["blocks"]:
+        x = residual_block(bp, x, None, None, cfg.transformer_heads, cfg,
+                           attn_mask=mask)
+    x = layer_norm(x, p["ln_final"])
+    x = x[torch.arange(x.shape[0], device=x.device), eot_idx]
+    return x @ p["text_projection"]
+
+
+def encode_text(params, tokens, cfg: CLIPConfig):
+    """tokens: integer (N, L) -> (N, embed_dim), each sequence's feature
+    at its end-of-text token (the largest id)."""
+    embeds = params["text"]["token_embedding"][tokens]
+    return text_encoder_forward(params, embeds, tokens.argmax(-1), cfg)
+
+
 # ------------------------------------------------------------------ init --
 def _uniform(gen, shape, lo, hi):
     return torch.rand(shape, generator=gen) * (hi - lo) + lo
@@ -247,10 +277,13 @@ def _block_init(gen, width, cfg, adapter):
     return p
 
 
-def init_clip_params(gen, cfg: CLIPConfig):
+def init_clip_params(gen, cfg: CLIPConfig, text=False):
     """Random image-tower parameters (``visual``) and ``logit_scale`` drawn
     from the torch.Generator ``gen`` on the CPU, in the JAX package's
-    layout and distributions. The text tower is not part of this slice."""
+    layout and distributions; with ``text``, the text tower (``text``)
+    too, drawn after them. The eval and training steps run no text, so
+    ``init_hoi_model`` leaves it out; the CLI draws it when no CLIP
+    checkpoint is given."""
     width = cfg.vision_width
     scale = width ** -0.5
     ps = cfg.vision_patch_size
@@ -267,5 +300,19 @@ def init_clip_params(gen, cfg: CLIPConfig):
         "ln_post": _ln_init(width),
         "proj": torch.randn((width, cfg.embed_dim), generator=gen) * scale,
     }
-    return {"visual": visual,
-            "logit_scale": torch.tensor(float(np.log(1 / 0.07)))}
+    params = {"visual": visual,
+              "logit_scale": torch.tensor(float(np.log(1 / 0.07)))}
+    if text:
+        tw = cfg.transformer_width
+        params["text"] = {
+            "token_embedding": torch.randn((cfg.vocab_size, tw),
+                                           generator=gen) * 0.02,
+            "positional_embedding": torch.randn(
+                (cfg.context_length, tw), generator=gen) * 0.01,
+            "blocks": [_block_init(gen, tw, cfg, False)
+                       for _ in range(cfg.transformer_layers)],
+            "ln_final": _ln_init(tw),
+            "text_projection": torch.randn((tw, cfg.embed_dim),
+                                           generator=gen) * tw ** -0.5,
+        }
+    return params

@@ -97,9 +97,12 @@ def init_resnet50_params(gen):
 
 def fold_bn(conv_w, bn_w, bn_b, bn_mean, bn_var, eps=BN_EPS):
     """Frozen BN (y = (x-mean)/sqrt(var+eps)*w + b) -> post-conv scale/bias.
-    Takes numpy arrays or tensors; returns f32 tensors."""
-    def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32)
-    scale = t(bn_w) / torch.sqrt(t(bn_var) + eps)
-    return {"w": t(conv_w), "scale": scale,
-            "bias": t(bn_b) - t(bn_mean) * scale}
+    Takes numpy arrays or tensors; returns f32 tensors. The arithmetic is
+    numpy's float32, as in the JAX package (``torch.sqrt`` on the CPU can
+    round an element the other way)."""
+    def a(x):
+        return x.detach().cpu().float().numpy() \
+            if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+    scale = a(bn_w) / np.sqrt(a(bn_var) + eps)
+    return {"w": torch.as_tensor(a(conv_w)), "scale": torch.as_tensor(scale),
+            "bias": torch.as_tensor(a(bn_b) - a(bn_mean) * scale)}

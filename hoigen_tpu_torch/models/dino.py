@@ -2,8 +2,9 @@
 
 torchvision resnet50 with fc=Identity in eval mode: the DETR backbone's
 architecture (BN folded) plus a global average pool, on the CLIP-stream
-images. Checkpoint conversion waits for the slice that loads checkpoints.
+images.
 """
+from .detr.convert import resnet50_state_dict_to_params
 from .detr.resnet import init_resnet50_params, resnet50_forward_nhwc
 
 
@@ -16,3 +17,10 @@ def dino_forward(params, images):
 
 
 init_dino_params = init_resnet50_params
+
+
+def torch_dino_state_dict_to_params(sd):
+    """A torchvision resnet50 state dict (keys conv1/bn1/layerX.Y..., as
+    the reference's DINO loader leaves them after its key cleanup) -> the
+    folded parameters, on the CPU."""
+    return resnet50_state_dict_to_params(sd)

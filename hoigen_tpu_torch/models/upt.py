@@ -518,3 +518,19 @@ def init_upt_params(gen, cfg: UPTConfig, caches, clip_params):
     buffers["verb_lut"] = torch.as_tensor(lut)
     buffers["verb_lut_valid"] = torch.as_tensor(lut_valid)
     return params, buffers
+
+
+def apply_vis_tor(params, cfg: UPTConfig, vis_tor: float):
+    """The eval-time logit-scale multiplier (--vis_tor,
+    main_tip_finetune.py:895-897): a copy of the head's ``params`` (the
+    ``upt`` dict) with logit_scale_HO and logit_scale_U times ``vis_tor``,
+    outside autograd."""
+    if vis_tor == 1.0:
+        return params
+    params = dict(params)
+    with torch.no_grad():
+        for k in ("logit_scale_HO", "logit_scale_U"):
+            if k in params:
+                params[k] = (params[k] * vis_tor).requires_grad_(
+                    params[k].requires_grad)
+    return params

@@ -1,9 +1,10 @@
 """hoigen_tpu_torch stands alone: it imports neither JAX nor the JAX package.
 
-In a fresh interpreter where ``import jax``, ``import hoigen_tpu`` and
-``import triton`` raise, every module of the port and ``chip_smoke.py``
-import, and no module of JAX, of the JAX package or of Triton appears in
-``sys.modules``.
+In a fresh interpreter where ``import jax``, ``import hoigen_tpu``,
+``import triton`` and ``import regex`` raise, every module of the port and
+``chip_smoke.py`` import, no module of JAX, of the JAX package, of Triton
+or of ``regex`` appears in ``sys.modules``, and the port's CLI prints its
+help.
 """
 import pathlib
 import subprocess
@@ -22,7 +23,8 @@ import importlib, sys
 
 class _Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu", "triton"):
+        if name.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu", "triton",
+                                  "regex"):
             raise ImportError(f"{name} must not be imported by the port")
         return None
 
@@ -30,7 +32,8 @@ sys.meta_path.insert(0, _Refuse())
 for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu", "triton"))
+             if m.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu", "triton",
+                                    "regex"))
 assert not bad, bad
 print("ok", len(sys.argv) - 1)
 """
@@ -68,7 +71,35 @@ def test_port_imports_without_jax(modules):
             "hoigen_tpu_torch.data.loader", "hoigen_tpu_torch.data.detections",
             "hoigen_tpu_torch.utils.config",
             "hoigen_tpu_torch.cli.main_finetune",
-            "hoigen_tpu_torch.tools.make_hicodet"} <= set(PORT_MODULES)
+            "hoigen_tpu_torch.tools.make_hicodet",
+            # the CLI's checkpoint import, text path and cache building
+            "hoigen_tpu_torch.models.clip.tokenizer",
+            "hoigen_tpu_torch.models.clip.convert",
+            "hoigen_tpu_torch.models.detr.convert",
+            "hoigen_tpu_torch.models.convert_upt",
+            "hoigen_tpu_torch.models.generator",
+            "hoigen_tpu_torch.tools.make_checkpoints",
+            "hoigen_tpu_torch.tools.make_vcoco"} <= set(PORT_MODULES)
     res = _probe(*modules)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == f"ok {len(modules)}"
+
+
+def test_port_cli_prints_its_help_without_jax():
+    """``python -m hoigen_tpu_torch.cli.main_finetune --help`` under the
+    same guard, and the text path tokenizes there (stdlib ``re``)."""
+    probe = _PROBE.replace("for name in sys.argv[1:]:", """import runpy
+from hoigen_tpu_torch.models.clip.tokenizer import tokenize
+assert tokenize(["a photo of a person riding a bicycle."])[0, 1] > 0
+sys.argv = ["main_finetune", "--help"]
+try:
+    runpy.run_module("hoigen_tpu_torch.cli.main_finetune",
+                     run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+for name in []:""").replace('print("ok", len(sys.argv) - 1)', 'print("ok")')
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "--gen-rounds" in res.stdout and "--resume" in res.stdout
+    assert res.stdout.strip().endswith("ok")
