@@ -10,8 +10,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. build the hand-written kernels from ``hoigen_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the HICO-DET eval step and training step give it, and K1 and
-   K2 at the padded buckets of phase 7's batches too (the attention
+   shapes the HICO-DET eval step and training step give it, K1 and K2
+   at the padded buckets of phase 7's batches too, and K1 in f32 at the
+   generator pipeline's crop encodes, batches 256, 64 and 32 (the attention
    backward through its autograd.Function, all four gradients; the CLIP
    attention on the (B, H, L, D) views of (B, L, H, D) buffers that its
    call site passes, bit for bit against contiguous copies, two backward
@@ -55,7 +56,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    just before it; check the launches, the losses, the AP vector and the
    .mat files, and time each run, its stages and the synthesis against
    its f32 bound; then V-COCO --eval at phase 4's small configuration on
-   the card and on the CPU, whose role APs must agree.
+   the card and on the CPU, whose role APs must agree;
+9. run the generator pipeline through its CLIs at full width (ViT-B/16
+   CLIP with its text tower, from a file written from ``--seed``) on 384
+   small random JPEGs a partition, in a temporary working directory:
+   ``prepare_data`` crops of the three families, gt-features,
+   pair-embeddings through the device crop encoder and global-caches (128
+   images each), then ``main_vae`` and ``finetune_ship`` for each family
+   at batch 256 (one epoch, two steps), each run with the counters set to
+   0 just before it; check each run's K1 launches, the losses, the frozen
+   CLIP bit-identical after training and the ``.npz`` files read back;
+   time the encodes (crops/s) and the steps (steps/s); then a small
+   configuration on the card and on the CPU (pair features, VAE losses
+   and parameters);
+10. run the DETR offline finetune (``cli/train_detr.py``) at the JAX
+   CLI's defaults (batch 2, --max-gt 32, aux losses, remat) on phase 7's
+   tree from a DETR-R50 file, one epoch, then ``cli/detections.py`` dump,
+   gt and eval; check that no kernel launched, the losses, the first
+   batch's matches against the CPU's on the same outputs and the APs; time
+   the steps and the dump.
 
 The last two lines of standard output are one JSON object of kernel
 numbers and one naming the device. Exits non-zero when no CUDA device is
@@ -685,6 +704,26 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
            lambda: attention_reference(q, k, v, compute_dtype=bf16),
            lambda: F.scaled_dot_product_attention(q16, k16, v16),
            nbytes(q, k, v, out), (2 * t_mm, t_exp), iters=50)
+    # ... and at the generator pipeline's crop encodes (phase 9): main_vae's
+    # batch of 256, prepare_data's 64 and the crop encoder's chunk of 32,
+    # in the call site's layout
+    cgen = torch.Generator(device="cuda").manual_seed(3)
+    for nb in GEN_K1_BATCHES:
+        qg, kg, vg = (torch.randn((nb, length, heads, hd), generator=cgen,
+                                  device="cuda").transpose(1, 2)
+                      for _ in range(3))
+        qg16, kg16, vg16 = (t.contiguous().to(bf16) for t in (qg, kg, vg))
+        scale = nb / b
+        record(f"attention_fwd_clip_f32_b{nb}",
+               "hoigen_tpu_torch/csrc/attention.cu",
+               "hoigen_tpu/ops/attention.py:48", fused_attention(qg, kg, vg),
+               attention_reference(qg, kg, vg, compute_dtype=bf16),
+               lambda: fused_attention(qg, kg, vg),
+               lambda: attention_reference(qg, kg, vg, compute_dtype=bf16),
+               lambda: F.scaled_dot_product_attention(qg16, kg16, vg16),
+               nbytes(qg, kg, vg, qg), (2 * t_mm * scale, t_exp * scale),
+               iters=20 if nb > 64 else 50)
+        del qg, kg, vg, qg16, kg16, vg16
     check_attention_layouts(q, k, v, dout, check)
 
     # K4 through the autograd.Function, with a nonzero key bias, against
@@ -1621,10 +1660,6 @@ def cli_phase(args, card):
     import torch
 
     from hoigen_tpu_torch.cli import main_finetune as mf
-    from hoigen_tpu_torch.ops.attention import attention_bwd, \
-        fused_attention
-    from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
-    from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
     from hoigen_tpu_torch.tools.make_checkpoints import write_checkpoints
     from hoigen_tpu_torch.tools.make_hicodet import write_hicodet
     from hoigen_tpu_torch.utils.config import parse_config
@@ -1632,10 +1667,7 @@ def cli_phase(args, card):
     t8 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="cli_")
     cwd = os.getcwd()
-    names = ("attention_fwd", "attention_bwd", "bottleneck_chain_fwd",
-             "cache_logits_fwd")
-    wrappers = (fused_attention, attention_bwd, fused_bottleneck_chain,
-                fused_cache_logits)
+    names, wrappers = kernel_wrappers()
     record = {"card": card, "gen_rounds": CLI_GEN_ROUNDS,
               "flags": " ".join(CLI_FLAGS)}
     try:
@@ -1741,6 +1773,562 @@ def cli_phase(args, card):
         shutil.rmtree(work, ignore_errors=True)
     record["seconds"] = time.perf_counter() - t8
     log(f"phase 8 took {record['seconds']:.1f} s")
+    return record
+
+
+# ----------------------------------------------- the generator pipeline
+# phase 9's tree: 384 small JPEGs a partition, 1 to 3 pairs each, so that
+# every family's split holds at least 512 crops after the IoU dedup: two
+# VAE and SHIP steps at batch 256
+GEN_SIZES = [(96, 72), (72, 96), (112, 84), (84, 112)] * 96
+GEN_FAMILIES = ("hoi", "human", "object")
+GEN_BATCH = 256
+# the images of pair-embeddings and global-caches (cut from the partition)
+GEN_ENCODE_LIMIT = 128
+# K1's batches on the crop encodes: main_vae, prepare_data's clip_apply,
+# the device crop encoder's chunk
+GEN_K1_BATCHES = (256, 64, 32)
+# phase 9's small configuration, card against CPU: 2 blocks a tower, the
+# image tower 128 wide (2 heads), the text tower at its 512
+GEN_SMALL_TOL = 5e-2        # K1's f32 route rounds q, k and v to bf16
+
+
+def kernel_wrappers():
+    """(names, wrappers) of the four kernels' launch counters."""
+    from hoigen_tpu_torch.ops.attention import attention_bwd, \
+        fused_attention
+    from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
+    from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
+    return (("attention_fwd", "attention_bwd", "bottleneck_chain_fwd",
+             "cache_logits_fwd"),
+            (fused_attention, attention_bwd, fused_bottleneck_chain,
+             fused_cache_logits))
+
+
+def counted_run(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counters set to 0 just before
+    and read just after. -> (result, seconds, {kernel: launches})."""
+    import torch
+    names, wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn(*args, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return result, seconds, {n: w.launches for n, w in zip(names, wrappers)}
+
+
+class Recorded:
+    """While active, each call of ``module.name`` appends what ``keep``
+    makes of its arguments and result to ``self.calls``."""
+
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls = []
+
+    def __enter__(self):
+        fn = self.saved = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            self.calls.append(self.keep(args, out))
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def expect_launches(what, counts, k1):
+    """Fail unless ``counts`` holds ``k1`` K1 launches and no other."""
+    want = {"attention_fwd": k1, "attention_bwd": 0,
+            "bottleneck_chain_fwd": 0, "cache_logits_fwd": 0}
+    if counts != want:
+        fail(f"{what}: launches {counts}, expected {want}")
+
+
+def frozen_clip_check(what, snapshots):
+    """Every CLIP tensor loaded by a run bit-identical to its copy taken
+    at load time, and none with a gradient. -> the number of tensors."""
+    import torch
+
+    from hoigen_tpu_torch.engine.partition import named_leaves
+    n = 0
+    for params, copies in snapshots:
+        for path, t in named_leaves(params):
+            if t.grad is not None or t.requires_grad or \
+                    not torch.equal(t, copies[path]):
+                fail(f"{what}: frozen CLIP tensor {path} changed")
+            n += 1
+    if not n:
+        fail(f"{what}: no CLIP tensor was loaded")
+    return n
+
+
+def generator_small_card_and_cpu(work, data, seed):
+    """Phase 9's small configuration from one CLIP file on the card and on
+    the CPU: ``pair-embeddings`` through the device crop encoder (boxes
+    and ids equal, features within GEN_SMALL_TOL of their scale) and two
+    ``main_vae`` steps at batch 4 (each step's loss, and the written
+    parameters, within GEN_SMALL_TOL). Returns a record."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.cli import main_vae, prepare_data
+    from hoigen_tpu_torch.models import generator as G
+    from hoigen_tpu_torch.models.clip.config import CLIPConfig
+    from hoigen_tpu_torch.tools.make_checkpoints import clip_state_dict
+
+    small = CLIPConfig(vision_layers=2, vision_width=128,
+                       transformer_layers=2, use_adapter=False)
+    path = os.path.join(work, "clip_small.pt")
+    torch.save(clip_state_dict(small, seed + 5), path)
+    split = os.path.join(work, "hoi_split.json")
+    with open(split) as f:
+        items = json.load(f)["train"][:8]
+    small_split = os.path.join(work, "small_split.json")
+    with open(small_split, "w") as f:
+        json.dump({"train": items, "test": []}, f)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pairs = os.path.join(work, f"small_pairs_{dev}.p")
+        prepare_data.main(["pair-embeddings", "--data-root", data,
+                           "--clip-model", path, "--limit", "6",
+                           "--out", pairs], device=dev)
+        with Recorded(G, "vae_step",
+                      lambda a, out: out.detach().item()) as losses:
+            npz = main_vae.main(["--split-json", small_split,
+                                 "--clip-model", path, "--ckpt-dir",
+                                 os.path.join(work, f"small_{dev}"),
+                                 "--epochs", "1", "--batch-size", "4",
+                                 "--seed", str(seed)], device=dev)
+        with open(pairs, "rb") as f:
+            runs[dev] = (pickle.load(f), losses.calls, dict(np.load(npz)))
+    (gp, gl, gw), (cp, cl, cw) = runs["cuda"], runs["cpu"]
+    if gp.keys() != cp.keys() or len(gp) != 6:
+        fail("generator small: the pair pickles hold other images")
+    worst = 0.0
+    for name in gp:
+        for k, v in gp[name].items():
+            if not k.endswith("_features"):
+                if not np.array_equal(v, cp[name][k]):
+                    fail(f"generator small: {k} of {name} differs")
+                continue
+            err = float(np.abs(v - cp[name][k]).max())
+            if not err <= GEN_SMALL_TOL * max(1.0, float(
+                    np.abs(cp[name][k]).max())):
+                fail(f"generator small: {k} differs by {err:.3e}")
+            worst = max(worst, err)
+    loss_err = float(np.abs(np.subtract(gl, cl)).max()) if gl else 1e9
+    if len(gl) != 2 or len(cl) != 2 or not loss_err <= GEN_SMALL_TOL * \
+            max(1.0, max(abs(x) for x in cl)):
+        fail(f"generator small: VAE losses {gl} (card) {cl} (CPU)")
+    param_err = max(float(np.abs(gw[k] - cw[k]).max()) for k in cw)
+    if gw.keys() != cw.keys() or not param_err <= GEN_SMALL_TOL:
+        fail(f"generator small: VAE parameters differ by {param_err:.3e}")
+    log(f"generator small: 6 images' pair features within {worst:.3e} of "
+        f"the CPU's, ids and boxes equal; VAE losses {gl} (card) {cl} "
+        f"(CPU), parameters within {param_err:.3e} ok")
+    return {"feature_max_abs_err": worst, "loss_max_abs_err": loss_err,
+            "param_max_abs_err": param_err, "losses_card": gl,
+            "losses_cpu": cl}
+
+
+def generator_phase(args, card):
+    """Phase 9: the generator pipeline through its CLIs at full width
+    (ViT-B/16 CLIP with its text tower, from a file written from
+    ``--seed``) on GEN_SIZES' tree, in a temporary working directory:
+    ``prepare_data`` crops, gt-features, pair-embeddings (device crop
+    encoder) and global-caches, then ``main_vae`` and ``finetune_ship``
+    for each family at batch 256, each run with the launch counters set
+    to 0 just before; then the small configuration on the card and on the
+    CPU. Returns the ``generator_run`` record."""
+    import math as _math
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.cli import finetune_ship, main_vae, prepare_data
+    from hoigen_tpu_torch.data import crops as crops_module
+    from hoigen_tpu_torch.engine.partition import named_leaves
+    from hoigen_tpu_torch.models import generator as G
+    from hoigen_tpu_torch.models.clip.config import VIT_B16
+    from hoigen_tpu_torch.tools.make_checkpoints import clip_state_dict
+    from hoigen_tpu_torch.tools.make_hicodet import write_hicodet
+
+    t9 = time.perf_counter()
+    per_encode = VIT_B16.vision_layers      # K1 launches a CLIP encode
+    work = tempfile.mkdtemp(prefix="generator_")
+    cwd = os.getcwd()
+    record = {"card": card, "images": len(GEN_SIZES), "runs": {},
+              "batch": GEN_BATCH, "epochs": 1}
+    runs = record["runs"]
+    seed = str(args.seed)
+    try:
+        os.chdir(work)
+        t0 = time.perf_counter()
+        data = write_hicodet(os.path.join(work, "hico"), GEN_SIZES,
+                             seed=args.seed)
+        clip_path = os.path.join(work, "clip.pt")
+        torch.save(clip_state_dict(VIT_B16, args.seed), clip_path)
+        record["write_files_s"] = time.perf_counter() - t0
+        log(f"generator: wrote {2 * len(GEN_SIZES)} JPEGs and the ViT-B/16 "
+            f"CLIP file in {record['write_files_s']:.1f} s")
+
+        # crops and splits, on the host
+        splits = {}
+        for fam in GEN_FAMILIES:
+            split = os.path.join(work, f"{fam}_split.json")
+            _, sec, counts = counted_run(prepare_data.main, [
+                "crops", "--data-root", data, "--category", fam,
+                "--out-dir", "crops", "--out", split, "--seed", seed])
+            expect_launches(f"crops {fam}", counts, 0)
+            with open(split) as f:
+                n = len(json.load(f)["train"])
+            if n < 2 * GEN_BATCH:
+                fail(f"crops {fam}: {n} crops, fewer than two batches")
+            splits[fam] = (split, n)
+            runs[f"crops_{fam}"] = {"seconds": sec, "crops": n,
+                                    "launches": counts}
+        log("generator: crops " + ", ".join(
+            f"{f} {splits[f][1]}" for f in GEN_FAMILIES))
+
+        # GT features: host crops, CLIP encodes of 64
+        gt = {}
+        for fam in GEN_FAMILIES:
+            split, n = splits[fam]
+            gt[fam] = os.path.join(work, f"gt_{fam}.pickle")
+            with FunctionTimes(prepare_data, ("produce_gt_features",)) \
+                    as pt:
+                _, sec, counts = counted_run(prepare_data.main, [
+                    "gt-features", "--split-json", split, "--clip-model",
+                    clip_path, "--out", gt[fam]])
+            loop_s = pt.s["produce_gt_features"]
+            expect_launches(f"gt-features {fam}", counts,
+                            per_encode * _math.ceil(n / 64))
+            with open(gt[fam], "rb") as f:
+                feats = [v[0] for v in pickle.load(f).values() if v]
+            if sum(len(v) for v in feats) != n or not all(
+                    np.isfinite(v).all() for v in feats):
+                fail(f"gt-features {fam}: {sum(map(len, feats))} of {n}")
+            runs[f"gt_features_{fam}"] = {"seconds": sec, "crops": n,
+                                          "producer_s": loop_s,
+                                          "crops_per_s": n / loop_s,
+                                          "launches": counts}
+            log(f"generator: gt-features {fam}: {n} crops in {loop_s:.2f} "
+                f"s, {n / loop_s:.0f} crops/s (host crops, CLIP at batch "
+                f"64; main {sec:.2f} s with the CLIP file's load); "
+                f"launches {counts}")
+
+        # pair embeddings through the device crop encoder (chunks of 32)
+        pairs = os.path.join(work, "pairs.p")
+        with FunctionTimes(prepare_data, ("produce_pair_embeddings",)) \
+                as pt:
+            _, sec, counts = counted_run(prepare_data.main, [
+                "pair-embeddings", "--data-root", data, "--clip-model",
+                clip_path, "--limit", str(GEN_ENCODE_LIMIT), "--out", pairs])
+        loop_s = pt.s["produce_pair_embeddings"]
+        with open(pairs, "rb") as f:
+            anno = pickle.load(f)
+        n_crops = sum(3 * len(a["boxes_h"]) for a in anno.values())
+        chunks = sum(_math.ceil(3 * len(a["boxes_h"]) / 32)
+                     for a in anno.values())
+        expect_launches("pair-embeddings", counts, per_encode * chunks)
+        if len(anno) != GEN_ENCODE_LIMIT or not all(
+                np.isfinite(a[k]).all() and a[k].shape[1] == 512
+                for a in anno.values() for k in
+                ("huamn_features", "object_features", "union_features")):
+            fail("pair-embeddings: the pickle is malformed")
+        runs["pair_embeddings"] = {"seconds": sec, "images": len(anno),
+                                   "crops": n_crops, "producer_s": loop_s,
+                                   "crops_per_s": n_crops / loop_s,
+                                   "launches": counts}
+        log(f"generator: pair-embeddings: {n_crops} crops of {len(anno)} "
+            f"images in {loop_s:.2f} s, {n_crops / loop_s:.0f} crops/s "
+            f"(JPEG reads, device crops, {chunks} encodes of 32; main "
+            f"{sec:.2f} s with the CLIP file's load); launches {counts}")
+
+        # global caches: whole CLIP-frame images, CLIP and DINO
+        caches = os.path.join(work, "global.npz")
+        _, sec, counts = counted_run(prepare_data.main, [
+            "global-caches", "--data-root", data, "--clip-model", clip_path,
+            "--limit", str(GEN_ENCODE_LIMIT), "--num-classes", "117",
+            "--out", caches])
+        expect_launches("global-caches", counts,
+                        per_encode * _math.ceil(GEN_ENCODE_LIMIT / 64))
+        z = np.load(caches)
+        if z["clip_keys"].shape != (512, 234) or \
+                z["dino_keys"].shape != (2048, 234) or \
+                not all(np.isfinite(z[k]).all() for k in z.files):
+            fail(f"global-caches: {[(k, z[k].shape) for k in z.files]}")
+        runs["global_caches"] = {"seconds": sec, "images": GEN_ENCODE_LIMIT,
+                                 "launches": counts}
+        log(f"generator: global-caches of {GEN_ENCODE_LIMIT} images in "
+            f"{sec:.2f} s; launches {counts}")
+
+        # the VAE of each family, then its SHIP MLP, at batch 256
+        for fam in GEN_FAMILIES:
+            split, n = splits[fam]
+            steps = n // GEN_BATCH
+            snapshots = []
+
+            def keep_clip(a, out):
+                snapshots.append((out[0], {p: t.clone() for p, t in
+                                           named_leaves(out[0])}))
+            argv = ["--data", f"{fam}_data", "--split-json", split,
+                    "--clip-model", clip_path, "--ckpt-dir", "ckpt",
+                    "--epochs", "1", "--batch-size", str(GEN_BATCH),
+                    "--seed", seed]
+            with Recorded(main_vae, "load_clip", keep_clip), \
+                    Recorded(G, "vae_step", lambda a, out: out.detach()) \
+                    as losses, \
+                    Recorded(main_vae, "save_family",
+                             lambda a, out: {k: v for k, v in
+                                             named_leaves(a[0])}) as saved, \
+                    FunctionTimes(main_vae, ("train_vae", "encode_image")) \
+                    as vt, FunctionTimes(G, ("build_prompt_tables",
+                                             "tables_on")) as tt, \
+                    FunctionTimes(crops_module.CropDataset,
+                                  ("__getitem__",)) as load:
+                vae_path, sec, counts = counted_run(main_vae.main, argv)
+            expect_launches(f"main_vae {fam}", counts, per_encode * steps)
+            vl = [float(x) for x in losses.calls]
+            if len(vl) != steps or not all(map(math.isfinite, vl)) or \
+                    len(set(vl)) < 2:
+                fail(f"main_vae {fam}: losses {vl} over {steps} steps")
+            n_frozen = frozen_clip_check(f"main_vae {fam}", snapshots)
+            back = main_vae.load_family(vae_path)
+            if {k for k, _ in named_leaves(back)} != set(saved.calls[0]) or \
+                    not all(torch.equal(t, saved.calls[0][k].cpu())
+                            for k, t in named_leaves(back)):
+                fail(f"main_vae {fam}: {vae_path} reads back otherwise")
+            # the loop less its crop loads, encodes and prompt tables
+            tables_s = tt.s["build_prompt_tables"] + tt.s["tables_on"]
+            step_s = vt.s["train_vae"] - vt.s["encode_image"] - \
+                load.s["__getitem__"] - tables_s
+            runs[f"main_vae_{fam}"] = {
+                "seconds": sec, "steps": steps, "losses": vl,
+                "launches": counts, "train_s": vt.s["train_vae"],
+                "encode_s": vt.s["encode_image"],
+                "crop_load_s": load.s["__getitem__"], "tables_s": tables_s,
+                "step_s": step_s, "steps_per_s": steps / step_s,
+                "encode_crops_per_s": steps * GEN_BATCH /
+                vt.s["encode_image"], "frozen_tensors": n_frozen}
+            log(f"generator: main_vae {fam}: {steps} steps at batch "
+                f"{GEN_BATCH}, losses {', '.join(f'{x:.5f}' for x in vl)}; "
+                f"main {sec:.2f} s, train_vae {vt.s['train_vae']:.2f} s of "
+                f"which the crop loads {load.s['__getitem__']:.2f} s, the "
+                f"prompt tables {tables_s:.3f} s and the encodes "
+                f"{vt.s['encode_image']:.3f} s "
+                f"({steps * GEN_BATCH / vt.s['encode_image']:.0f} crops/s); "
+                f"steps {step_s:.3f} s, {steps / step_s:.2f} steps/s; "
+                f"{n_frozen} CLIP tensors bit-identical; launches {counts}; "
+                f"{os.path.basename(vae_path)} reads back")
+
+            with Recorded(G, "ship_step", lambda a, out: out.detach()) \
+                    as losses, \
+                    Recorded(finetune_ship, "save_mlp",
+                             lambda a, out: {k: v for k, v in
+                                             named_leaves(a[0])}) as saved, \
+                    FunctionTimes(finetune_ship, ("train_ship",)) as st, \
+                    FunctionTimes(G, ("tables_on",)) as tt, \
+                    FunctionTimes(crops_module.CropDataset,
+                                  ("__getitem__",)) as load:
+                mlp_path, sec, counts = counted_run(finetune_ship.main, [
+                    "--data", f"{fam}_data", "--vae-ckpt", vae_path,
+                    "--gt-features", gt[fam], "--split-json", split,
+                    "--clip-model", clip_path, "--ckpt-dir", "ckpt",
+                    "--epochs", "1", "--batch-size", str(GEN_BATCH),
+                    "--seed", seed])
+            expect_launches(f"finetune_ship {fam}", counts, 0)
+            sl = [float(x) for x in losses.calls]
+            if len(sl) != steps or not all(map(math.isfinite, sl)) or \
+                    len(set(sl)) < 2:
+                fail(f"finetune_ship {fam}: losses {sl} over {steps} steps")
+            back = finetune_ship.load_mlp(mlp_path)
+            if len(back) != 3 or not all(
+                    torch.equal(t, saved.calls[0][k].cpu())
+                    for k, t in named_leaves(back)):
+                fail(f"finetune_ship {fam}: {mlp_path} reads back otherwise")
+            step_s = st.s["train_ship"] - load.s["__getitem__"] - \
+                tt.s["tables_on"]
+            runs[f"finetune_ship_{fam}"] = {
+                "seconds": sec, "steps": steps, "losses": sl,
+                "launches": counts, "train_s": st.s["train_ship"],
+                "crop_load_s": load.s["__getitem__"], "step_s": step_s,
+                "steps_per_s": steps / step_s}
+            log(f"generator: finetune_ship {fam}: losses "
+                f"{', '.join(f'{x:.5f}' for x in sl)}; main {sec:.2f} s, "
+                f"train_ship {st.s['train_ship']:.2f} s of which the crop "
+                f"loads {load.s['__getitem__']:.2f} s and the prompt tables "
+                f"{tt.s['tables_on']:.3f} s; steps {step_s:.3f} s, "
+                f"{steps / step_s:.2f} steps/s; launches {counts}; "
+                f"{os.path.basename(mlp_path)} reads back")
+            torch.cuda.empty_cache()
+        record["small"] = generator_small_card_and_cpu(work, data,
+                                                       args.seed)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t9
+    log(f"phase 9 took {record['seconds']:.1f} s")
+    return record
+
+
+# ------------------------------------------------- the DETR offline finetune
+def detr_finetune_phase(args, card):
+    """Phase 10: ``cli/train_detr.py::main`` at the JAX CLI's defaults
+    (batch 2, --max-gt 32, aux losses) on phase 7's tree from a DETR-R50
+    file written from ``--seed``, one epoch; then ``cli/detections.py``
+    dump, gt and eval, each with the launch counters set to 0 just before.
+    Checks the losses, the launches (none: the finetune's gates are
+    closed, and dump's f32 DETR closes K1's), one batch's matches against
+    the CPU's on the same outputs, the checkpoint and the APs. Returns the
+    ``detr_finetune_run`` record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.cli import detections, train_detr
+    from hoigen_tpu_torch.models.detr.config import DETRConfig
+    from hoigen_tpu_torch.ops.matching import detr_matching_cost
+    from hoigen_tpu_torch.tools.make_checkpoints import detr_state_dict
+    from hoigen_tpu_torch.tools.make_hicodet import write_hicodet
+
+    t10 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="detr_")
+    record = {"card": card, "images": len(EVAL_SIZES), "batch": 2,
+              "max_gt": 32, "epochs": 1}
+    first, losses, step_s = {}, [], []
+    make_fns = train_detr.detr_train_step_fns
+
+    def recording_fns(*a, **kw):
+        forward_and_cost, loss_and_update = make_fns(*a, **kw)
+
+        def fwd(params, images, mask, gt_labels, gt_boxes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layers, costs = forward_and_cost(params, images, mask,
+                                             gt_labels, gt_boxes)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if not first:
+                first.update(layers=[t.detach().cpu() for t in layers],
+                             labels=np.array(gt_labels),
+                             boxes=np.array(gt_boxes),
+                             costs=costs.cpu().numpy())
+            return layers, costs
+
+        def upd(layers, gt_labels, gt_boxes, gt_valid, rows, cols, mvalid):
+            t0 = time.perf_counter()
+            out = loss_and_update(layers, gt_labels, gt_boxes, gt_valid,
+                                  rows, cols, mvalid)
+            torch.cuda.synchronize()
+            step_s[-1] += time.perf_counter() - t0
+            if "rows" not in first:
+                first.update(rows=rows, cols=cols, valid=np.array(gt_valid))
+            losses.append(out["total"].item())
+            return out
+        return fwd, upd
+
+    try:
+        data = write_hicodet(os.path.join(work, "hico"), EVAL_SIZES,
+                             seed=args.seed)
+        pth = os.path.join(work, "detr.pth")
+        torch.save({"model": detr_state_dict(DETRConfig(), args.seed + 1,
+                                             spread=30.0)}, pth)
+        out = os.path.join(work, "detr_out")
+        train_detr.detr_train_step_fns = recording_fns
+        try:
+            with FunctionTimes(train_detr, ("run_epoch",)) as ft:
+                (_, avg), sec, counts = counted_run(train_detr.main, [
+                    "--data-root", data, "--pretrained", pth, "--epochs",
+                    "1", "--output-dir", out, "--seed", str(args.seed)])
+        finally:
+            train_detr.detr_train_step_fns = make_fns
+        expect_launches("train_detr", counts, 0)
+        steps = len(EVAL_SIZES) // 2
+        if len(losses) != steps or not all(map(math.isfinite, losses)) or \
+                len(set(losses)) < 2 or not os.path.isfile(
+                    os.path.join(out, "ckpt_00000001.pt")):
+            fail(f"train_detr: losses {losses} over {steps} steps")
+        # the first batch's matches from the CPU's costs of the card's
+        # outputs
+        lg, bx = first["layers"]
+        cpu_costs = detr_matching_cost(lg, bx, torch.as_tensor(
+            first["labels"]).long(), torch.as_tensor(first["boxes"]))
+        cost_err = float(np.abs(cpu_costs.numpy() - first["costs"]).max())
+        rows, cols, _ = train_detr.match_layers(cpu_costs.numpy(),
+                                                first["valid"], 32)
+        if not (np.array_equal(rows, first["rows"]) and
+                np.array_equal(cols, first["cols"])):
+            fail("train_detr: the first batch's matches differ from the "
+                 "CPU's")
+        loop_s = ft.s["run_epoch"]
+        # the forward, costs, losses, backward and update of each step,
+        # without the host's batches and matching; the first step holds
+        # the first calls
+        later = sorted(step_s[1:])
+        record["train"] = {"seconds": sec, "steps": steps, "losses": losses,
+                           "mean_loss": avg, "launches": counts,
+                           "epoch_s": loop_s, "steps_per_s": steps / loop_s,
+                           "step_s": step_s,
+                           "median_step_s": later[len(later) // 2],
+                           "matches": int(first["valid"].sum()) * len(lg),
+                           "cost_max_abs_err": cost_err}
+        log(f"detr finetune: {steps} steps, losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; main {sec:.2f} s, "
+            f"the epoch {loop_s:.2f} s, {steps / loop_s:.2f} steps/s at "
+            f"batch 2 on {card}; the steps' device work (forward to "
+            f"update) {step_s[0]:.3f} s first, median "
+            f"{record['train']['median_step_s']:.3f} s after; launches "
+            f"{counts}; the first batch's "
+            f"{record['train']['matches']} matches over {len(lg)} layers "
+            f"equal the CPU's (costs within {cost_err:.2e})")
+
+        det, gt = (os.path.join(work, d) for d in ("det", "gt"))
+        with FunctionTimes(detections, ("dump_detections",)) as dt:
+            _, sec, counts = counted_run(detections.main, [
+                "dump", "--data-root", data, "--pretrained", pth,
+                "--out-dir", det])
+        expect_launches("detections dump", counts, 0)
+        n_img = len(EVAL_SIZES)
+        if len(os.listdir(det)) != n_img:
+            fail(f"detections dump: {len(os.listdir(det))} files")
+        dump_s = dt.s["dump_detections"]
+        _, gt_s, counts = counted_run(detections.main, [
+            "gt", "--data-root", data, "--out-dir", gt])
+        expect_launches("detections gt", counts, 0)
+        ap_gt = detections.main(["eval", "--data-root", data, "--det-dir",
+                                 gt])
+        ap = detections.main(["eval", "--data-root", data, "--det-dir", det])
+        if not np.isfinite(ap).all() or not ((ap >= 0) & (ap <= 1)).all() \
+                or float(ap_gt[ap_gt > 0].mean()) != 1.0:
+            fail(f"detections eval: AP {ap}, GT AP {ap_gt}")
+        record["dump"] = {"seconds": sec, "loop_s": dump_s,
+                          "images_per_s": n_img / dump_s,
+                          "launches": counts,
+                          "mAP": float(ap[ap > 0].mean()) if (ap > 0).any()
+                          else 0.0, "gt_mAP": 1.0}
+        log(f"detr finetune: dump of {n_img} images in {dump_s:.2f} s, "
+            f"{n_img / dump_s:.2f} images/s (f32, batch 8; main "
+            f"{sec:.2f} s); launches {counts}; detection mAP "
+            f"{record['dump']['mAP']:.4f} (random weights), the GT files' "
+            f"1.0 ok")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t10
+    log(f"phase 10 took {record['seconds']:.1f} s")
     return record
 
 
@@ -1945,6 +2533,24 @@ def main():
     del model, train_model, trainer
     torch.cuda.empty_cache()
     cli = cli_phase(args, card)
+
+    # phase 9: the generator pipeline; phase 10: the DETR offline finetune
+    generator_run = generator_phase(args, card)
+    detr_run = detr_finetune_phase(args, card)
+    # K1's launches in phase 9's runs, on the record of their batch: the
+    # VAE encodes 256 crops, prepare_data's clip_apply up to 64 (a last
+    # batch holds the rest), the crop encoder 32
+    gen_runs = generator_run["runs"]
+    gen_shapes = {"attention_fwd_clip_f32_b256": ("main_vae",),
+                  "attention_fwd_clip_f32_b64": ("gt_features",
+                                                 "global_caches"),
+                  "attention_fwd_clip_f32_b32": ("pair_embeddings",)}
+    gen_launches = {name: {run: r["launches"]["attention_fwd"]
+                           for run, r in gen_runs.items()
+                           if run.startswith(prefixes)}
+                    for name, prefixes in gen_shapes.items()}
+    for name, by_run in gen_launches.items():
+        launches[name] = sum(by_run.values())
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for rec in records:
@@ -1954,6 +2560,15 @@ def main():
         # record of its main-path shape
         rec["launches_cli"] = {mode: run["launches"].get(rec["name"], 0)
                                for mode, run in cli["runs"].items()}
+        # and in phase 9's runs at its shape (every other kernel and
+        # shape launched 0 times there), and phase 10's (no kernel)
+        kernel = next(k for k in ("attention_fwd", "attention_bwd",
+                                  "bottleneck_chain_fwd", "cache_logits_fwd")
+                      if rec["name"].startswith(k[:12]))
+        rec["launches_generator"] = gen_launches.get(rec["name"], {})
+        rec["launches_detr_finetune"] = {
+            run: detr_run[run]["launches"][kernel]
+            for run in ("train", "dump")}
         if rec["source"].endswith("fused_resnet.cu"):
             # {kernel: (registers, spill store bytes, spill load bytes)}
             rec["ptxas"] = ptxas.get("fused_resnet", {})
@@ -1965,7 +2580,8 @@ def main():
                            "images_per_s": timages, "device_busy_ms": tbusy,
                            "first_loss": losses[0], "last_loss": losses[-1],
                            "card": card},
-            "eval_run": eval_run, "cli_run": cli}
+            "eval_run": eval_run, "cli_run": cli,
+            "generator_run": generator_run, "detr_finetune_run": detr_run}
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -154,11 +154,16 @@ def _forward(params, buffers, batch, cfg: HOIModelConfig, training=False,
 
 
 class GroupedAdamW:
-    """AdamW in two learning-rate groups, each clipped to its own global
-    norm, with the learning rate cut by 10 from update ``lr_drop_step`` on:
+    """AdamW in learning-rate groups, each clipped to its own global norm,
+    with the learning rate cut by 10 from update ``lr_drop_step`` on:
     ``optax.multi_transform`` of ``chain(clip_by_global_norm(max_norm),
     adamw(piecewise_constant_schedule(lr, {lr_drop_step: 0.1}),
     weight_decay))`` per group, as the JAX package builds it.
+
+    ``base_lr`` maps each group's name to its learning rate; ``group``
+    names the group of a leaf from its path (default
+    ``engine/partition.py::lr_group``: 'vit' for CLIP, 'head' for the
+    rest).
 
     As optax: the clip scales a group by max_norm / norm only where its
     norm is not below max_norm (``torch.nn.utils.clip_grad_norm_`` would
@@ -168,13 +173,13 @@ class GroupedAdamW:
     formula as optax's (b1 0.9, b2 0.999, eps 1e-8) with another rounding
     order."""
 
-    def __init__(self, named_params, lr_vit=1e-3, lr_head=1e-3,
+    def __init__(self, named_params, base_lr, group=lr_group,
                  weight_decay=1e-4, lr_drop_step: Optional[int] = None,
                  max_norm=0.1):
-        groups = {"vit": [], "head": []}
+        groups = {name: [] for name in base_lr}
         for path, t in named_params:
-            groups[lr_group(path)].append(t)
-        self.base_lr = {"vit": lr_vit, "head": lr_head}
+            groups[group(path)].append(t)
+        self.base_lr = dict(base_lr)
         self.lr_drop_step = lr_drop_step
         self.max_norm = max_norm
         self.count = 0
@@ -221,8 +226,10 @@ def make_optimizer(lr_vit=1e-3, lr_head=1e-3, weight_decay=1e-4,
     of ``params`` (AdamW with two LR groups, StepLR x0.1 at lr_drop_step,
     gradient clip 0.1 per group)."""
     def make(params):
-        return GroupedAdamW(trainable_leaves(params), lr_vit, lr_head,
-                            weight_decay, lr_drop_step, max_norm)
+        return GroupedAdamW(trainable_leaves(params),
+                            {"vit": lr_vit, "head": lr_head},
+                            weight_decay=weight_decay,
+                            lr_drop_step=lr_drop_step, max_norm=max_norm)
     return make
 
 

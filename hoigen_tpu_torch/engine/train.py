@@ -12,7 +12,8 @@ from .checkpoint import restore_checkpoint, save_checkpoint
 from .partition import trainable_leaves
 
 
-def _key(path):
+def key_of(path):
+    """A leaf's path as a checkpoint key: its parts joined by '/'."""
     return "/".join(str(p) for p in path)
 
 
@@ -22,10 +23,10 @@ def load_trainable(params, path: str) -> None:
     saved state (optimizer, counters) is not read."""
     leaves = trainable_leaves(params)
     state = restore_checkpoint(
-        path, {"trainable": {_key(p): t for p, t in leaves}}, partial=True)
+        path, {"trainable": {key_of(p): t for p, t in leaves}}, partial=True)
     with torch.no_grad():
         for p, t in leaves:
-            t.copy_(state["trainable"][_key(p)])
+            t.copy_(state["trainable"][key_of(p)])
 
 
 class Trainer:
@@ -52,7 +53,7 @@ class Trainer:
     def state(self):
         """The full training state: trainable parameters (by path),
         optimizer state (with its update count), iteration and epoch."""
-        return {"trainable": {_key(p): t.detach() for p, t in
+        return {"trainable": {key_of(p): t.detach() for p, t in
                               trainable_leaves(self.params)},
                 "opt_state": self.optimizer.state_dict(),
                 "iteration": self.iteration, "epoch": self.epoch}

@@ -1,6 +1,7 @@
 """DETR architecture configuration (copy of
 ``hoigen_tpu/models/detr/config.py``; defaults = DETR-R50 as used by the
-HOI pipeline)."""
+HOI pipeline). The JAX config's ``nchw_backbone``, a layout experiment
+that computes the same function, has no counterpart here."""
 import dataclasses
 
 
@@ -25,8 +26,8 @@ class DETRConfig:
     # kernels take every layer's tail: layer1's (2 blocks, C=256, M=64) by
     # the fused route, the others by the layered one.
     fused_resnet_tail: tuple = (0,)
-    # rematerialisation of backbone blocks in the backward. The training
-    # step keeps DETR frozen and runs no backward through it, so the flag
-    # only turns the fused tail off (the offline DETR finetune would give
-    # it its use)
+    # recompute each backbone block in the backward
+    # (torch.utils.checkpoint) instead of keeping its activations: the
+    # offline DETR finetune (cli/train_detr.py) sets it; it also turns the
+    # fused tail off. The HOI pipeline runs DETR frozen and leaves it off
     remat_backbone: bool = False

@@ -142,7 +142,8 @@ def detr_forward(params, images, image_mask, cfg: DETRConfig):
         and not cfg.remat_backbone) else ()
     feat = resnet50_forward_nhwc(params["backbone"],
                                  images.permute(0, 2, 3, 1).contiguous(),
-                                 fused_tail=fused_tail)
+                                 fused_tail=fused_tail,
+                                 remat=cfg.remat_backbone)
     b, fh, fw, _ = feat.shape
     fmask = downsample_mask(image_mask, fh, fw)
     pos = sine_position_embedding(fmask, cfg.hidden_dim // 2)

@@ -7,11 +7,15 @@ Activations are NHWC at the public functions and weights OIHW, as in the
 JAX package. The unfused convs go to ``torch.nn.functional.conv2d`` on a
 channels-last view (cuDNN on the card), as the JAX package leaves them to
 XLA; ``fused_tail`` routes a layer's stride-1 tail blocks through the fused
-bottleneck-chain kernel (``ops/fused_resnet.py``).
+bottleneck-chain kernel (``ops/fused_resnet.py``); ``remat`` recomputes
+each block in the backward. The JAX package's NCHW route
+(``DETRConfig.nchw_backbone``, a layout experiment that computes the same
+function) is not ported.
 """
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.fused_resnet import fused_bottleneck_chain
 from ...ops._weights import cast
@@ -50,21 +54,31 @@ def _bottleneck_nhwc(x, p, stride):
     return torch.relu(out + identity)
 
 
-def resnet50_forward_nhwc(params, x, fused_tail=()):
+def _checkpointed(x, p, stride):
+    return checkpoint(_bottleneck_nhwc, x, p, stride, use_reentrant=False)
+
+
+def resnet50_forward_nhwc(params, x, fused_tail=(), remat=False):
     """x: (B, H, W, 3) -> C5 (B, H/32, W/32, 2048).
 
     ``fused_tail``: residual-layer indices whose stride-1 tail blocks run
-    through :func:`fused_bottleneck_chain` (inference only)."""
+    through :func:`fused_bottleneck_chain` (inference only). ``remat``:
+    each bottleneck under ``torch.utils.checkpoint``, so that the backward
+    recomputes a block's activations instead of keeping them (the offline
+    DETR finetune's memory, as ``jax.checkpoint`` in the JAX package); it
+    takes effect only where a gradient is recorded."""
     x = _conv_bn_nhwc(x, params["stem"], stride=2, padding=3)
     x = _max_pool_3x3_s2_nhwc(x)
+    block = _checkpointed if remat and torch.is_grad_enabled() \
+        else _bottleneck_nhwc
     for li, blocks in enumerate(params["layers"]):
         stride = 1 if li == 0 else 2
-        if li in fused_tail and len(blocks) > 1:
+        if li in fused_tail and len(blocks) > 1 and not remat:
             x = _bottleneck_nhwc(x, blocks[0], stride)
             x = fused_bottleneck_chain(x.contiguous(), blocks[1:])
         else:
             for bi, bp in enumerate(blocks):
-                x = _bottleneck_nhwc(x, bp, stride if bi == 0 else 1)
+                x = block(x, bp, stride if bi == 0 else 1)
     return x
 
 

@@ -1,15 +1,15 @@
-"""The CoOp-prompted feature generator's inference half (port of
-``hoigen_tpu/models/generator.py``): the generator and SHIP MLP forwards,
-the conditional prompt learner, batched unseen-class feature synthesis,
-their random init and the converters of the reference's per-module
-``.pth`` files.
+"""The CoOp-prompted feature generator (port of
+``hoigen_tpu/models/generator.py``): the VAE encoder, generator and SHIP
+MLP forwards, the VAE and SHIP training objectives, the conditional prompt
+learner, batched unseen-class feature synthesis, their random init and the
+converters of the reference's per-module ``.pth`` files.
 
 Per family (hoi / human / object) a generator maps z ~ N(0, I) to a bias
 that shifts the learned context tokens of a class prompt; the frozen CLIP
 text tower encodes the prompt, and an optional SHIP MLP maps the
-normalised feature onto the cached crop features. The VAE encoder's
-forward and the VAE and SHIP training steps (``vae_step``,
-``ship_step``) come with the generator's training CLIs.
+normalised feature onto the cached crop features. :func:`vae_step` and
+:func:`ship_step` are the training objectives of ``cli/main_vae.py`` and
+``cli/finetune_ship.py``; they take their normal draws as tensors.
 
 :func:`synthesize_chunk` is one chunk of the synthesis with z and the
 targets given; :func:`synthesize_features` draws z from a
@@ -40,6 +40,13 @@ def init_encoder_params(gen):
     return {"net": _linear_init(gen, 2048, FEAT),
             "mean": _linear_init(gen, FEAT, 2048),
             "log_var": _linear_init(gen, FEAT, 2048)}
+
+
+def encoder_forward(p, x):
+    """The VAE encoder: x (B, 512) -> (mean, log_var), each (B, 512)."""
+    h = torch.relu(x @ p["net"]["w"].T + p["net"]["b"])
+    return (h @ p["mean"]["w"].T + p["mean"]["b"],
+            h @ p["log_var"]["w"].T + p["log_var"]["b"])
 
 
 def init_generator_params(gen):
@@ -146,6 +153,14 @@ def build_prompt_tables(classnames: Sequence[str], token_embedding,
     return tables
 
 
+def tables_on(tables: PromptTables, device) -> PromptTables:
+    """The tables with their arrays as tensors on ``device``, so that the
+    prompt forwards of a loop copy nothing to the device."""
+    return dataclasses.replace(tables, **{
+        k: torch.as_tensor(v, device=device)
+        for k, v in vars(tables).items() if isinstance(v, np.ndarray)})
+
+
 def prompt_forward(ctx, tables: PromptTables, bias, target):
     """prompts = prefix[target] ++ (ctx + bias) ++ suffix[target]
     (main_coop_vae.py:117-128). bias: (B, D); target: (B,) class ids (a
@@ -169,7 +184,43 @@ def prompted_text_features(clip_params, clip_cfg: CLIPConfig, ctx,
     return text_encoder_forward(clip_params, prompts, eot, clip_cfg)
 
 
-# --------------------------------------------- batched unseen-feature synthesis
+# ------------------------------------- training (main_coop_vae.py:300-491)
+def vae_loss(recon, x, mean, log_var):
+    rec = torch.sum((recon - x) ** 2, dim=1).mean()
+    kld = -0.5 * torch.sum(1 + log_var - mean ** 2 - torch.exp(log_var),
+                           dim=1).mean()
+    return rec + kld
+
+
+def vae_step(params, tables, clip_params, clip_cfg, image_features, target,
+             noise):
+    """params: {enc, gen, ctx}; image_features (B, 512) L2-normalised;
+    noise (B, 512) standard normal, the reparameterisation's draw (the JAX
+    package draws it from a key inside the step). -> the scalar loss,
+    differentiable in params."""
+    mean, log_var = encoder_forward(params["enc"], image_features)
+    z = torch.exp(0.5 * log_var) * noise + mean
+    bias = generator_forward(params["gen"], z)
+    text = prompted_text_features(clip_params, clip_cfg, params["ctx"],
+                                  tables, bias, target)
+    text = text / torch.linalg.vector_norm(text, dim=-1, keepdim=True)
+    return vae_loss(text, image_features, mean, log_var)
+
+
+def ship_step(mlp_params, gen_params, ctx, tables, clip_params, clip_cfg,
+              gt_features, target, z):
+    """SHIP alignment (finetune_ship.py:474-530): z (B, 512) ~ N(0, I)
+    through the frozen generator and prompts, the text tower and the
+    trainable MLP, against the GT crop features. -> the scalar MSE."""
+    bias = generator_forward(gen_params, z)
+    text = prompted_text_features(clip_params, clip_cfg, ctx, tables, bias,
+                                  target)
+    text = text / torch.linalg.vector_norm(text, dim=-1, keepdim=True)
+    out = ship_mlp_forward(mlp_params, text)
+    return torch.mean(torch.sum((out - gt_features) ** 2, dim=1))
+
+
+# ------------------------------------------ batched unseen-feature synthesis
 @dataclasses.dataclass
 class GeneratorFamily:
     gen_params: dict            # frozen netG
@@ -218,11 +269,7 @@ def synthesize_features(families: dict, clip_params, clip_cfg: CLIPConfig,
         gen = torch.Generator().manual_seed(seed * 1_000_003 + fi)
         tgt_all = torch.as_tensor(targets[fam], device=dev)
         # the tables on the device once, not once a chunk
-        arrays = {k: v for k, v in vars(gf.tables).items()
-                  if isinstance(v, np.ndarray)}
-        gf = dataclasses.replace(gf, tables=dataclasses.replace(
-            gf.tables, **{k: torch.as_tensor(v, device=dev)
-                          for k, v in arrays.items()}))
+        gf = dataclasses.replace(gf, tables=tables_on(gf.tables, dev))
         feats = []
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)

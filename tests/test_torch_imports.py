@@ -79,27 +79,54 @@ def test_port_imports_without_jax(modules):
             "hoigen_tpu_torch.models.convert_upt",
             "hoigen_tpu_torch.models.generator",
             "hoigen_tpu_torch.tools.make_checkpoints",
-            "hoigen_tpu_torch.tools.make_vcoco"} <= set(PORT_MODULES)
+            "hoigen_tpu_torch.tools.make_vcoco",
+            # the generator pipeline and the DETR offline finetune
+            "hoigen_tpu_torch.data.crops", "hoigen_tpu_torch.ops.resize",
+            "hoigen_tpu_torch.ops.matching",
+            "hoigen_tpu_torch.cli.prepare_data",
+            "hoigen_tpu_torch.cli.main_vae",
+            "hoigen_tpu_torch.cli.finetune_ship",
+            "hoigen_tpu_torch.cli.train_detr",
+            "hoigen_tpu_torch.cli.detections"} <= set(PORT_MODULES)
     res = _probe(*modules)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == f"ok {len(modules)}"
 
 
-def test_port_cli_prints_its_help_without_jax():
-    """``python -m hoigen_tpu_torch.cli.main_finetune --help`` under the
-    same guard, and the text path tokenizes there (stdlib ``re``)."""
-    probe = _PROBE.replace("for name in sys.argv[1:]:", """import runpy
+def _help_probe(cli):
+    return _PROBE.replace("for name in sys.argv[1:]:", f"""import runpy
 from hoigen_tpu_torch.models.clip.tokenizer import tokenize
 assert tokenize(["a photo of a person riding a bicycle."])[0, 1] > 0
-sys.argv = ["main_finetune", "--help"]
+sys.argv = ["{cli}", "--help"]
 try:
-    runpy.run_module("hoigen_tpu_torch.cli.main_finetune",
-                     run_name="__main__")
+    runpy.run_module("hoigen_tpu_torch.cli.{cli}", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
 for name in []:""").replace('print("ok", len(sys.argv) - 1)', 'print("ok")')
-    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+
+
+def test_port_cli_prints_its_help_without_jax():
+    """``python -m hoigen_tpu_torch.cli.main_finetune --help`` under the
+    same guard, and the text path tokenizes there (stdlib ``re``)."""
+    res = subprocess.run([sys.executable, "-c", _help_probe("main_finetune")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
     assert "--gen-rounds" in res.stdout and "--resume" in res.stdout
+    assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("cli,flags", [
+    ("prepare_data", ["--host-crops", "vcoco-annotations"]),
+    ("main_vae", ["--ctx-init", "--split-json"]),
+    ("finetune_ship", ["--vae-ckpt", "--gt-features"]),
+    ("train_detr", ["--lr-backbone", "--no-aux-loss"]),
+    ("detections", ["--label-map", "--score-thresh"])])
+def test_generator_and_detr_clis_print_their_help_without_jax(cli, flags):
+    """The same for the generator pipeline's and the DETR finetune's
+    CLIs."""
+    res = subprocess.run([sys.executable, "-c", _help_probe(cli)], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert all(f in res.stdout for f in flags), res.stdout
     assert res.stdout.strip().endswith("ok")
