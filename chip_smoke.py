@@ -12,7 +12,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the HICO-DET eval step and training step give it, K1 and K2
    at the padded buckets of phase 7's batches too, and K1 in f32 at the
-   generator pipeline's crop encodes, batches 256, 64 and 32 (the attention
+   generator pipeline's crop encodes, batches 256, 64 and 32, K1, K2 and
+   K3 at batch 1 (phase 12's one-image step), at phase 11's per-rank
+   batch 2 K1 and K2 at phase 7's buckets, the CLIP tower's K1 and K4 and
+   K3 at 117 classes, and K3 on half the cache rows (phase 11's model
+   axis of 2; 600 and 117 classes) (the attention
    backward through its autograd.Function, all four gradients; the CLIP
    attention on the (B, H, L, D) views of (B, L, H, D) buffers that its
    call site passes, bit for bit against contiguous copies, two backward
@@ -74,7 +78,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    tree from a DETR-R50 file, one epoch, then ``cli/detections.py`` dump,
    gt and eval; check that no kernel launched, the losses, the first
    batch's matches against the CPU's on the same outputs and the APs; time
-   the steps and the dump.
+   the steps and the dump;
+11. parallelism on one card, at phase 8's flags on phase 7's tree with
+   dropout off: the CLI's training epoch and --eval in a NCCL process
+   group of one against the same runs without one (bit for bit), and
+   ``--devices 2`` refused; then two processes on ``cuda:0`` over gloo:
+   the training epoch, --eval and --cache against one process (the
+   first update's clipped gradients, the merged AP vector within rtol
+   1e-6, the .mat files' rows equal in count and sums, and rank 0's first
+   eval step against one process's on the same rows), and one training
+   step of phase 6's model with the language-aware term on, with the
+   cache rows sharded on a (1, 2) mesh and on a (2, 1) mesh, against one
+   process (losses within 1e-4 and clipped gradients, K3 launched on each
+   rank's slice); each rank's launches;
+12. the remainder: the inference CLI at full width from phase 8's files
+   and checkpoint, default, --action K and --action K --failure (6 / 1
+   / 3 launches each, its figures, its one-image step timed), and at a
+   small configuration on the card and on the CPU (the listings line for
+   line); ``prepare_data gt-features`` with an RN50 CLIP file and
+   ``main_vae`` with an RN101 one on phase 9's tree (no launch, the
+   frozen CLIP bit-identical) and a small RN tower card against CPU; the
+   legacy interaction head at full width and ``generate_masks`` at
+   800 x 1344 card against CPU; ``engine/profiling.py`` on phase 5's
+   eval step (a trace of five steps, StepTimer's images/s, the peak
+   allocation), measured after phase 7 while that model is alive.
 
 The last two lines of standard output are one JSON object of kernel
 numbers and one naming the device. Exits non-zero when no CUDA device is
@@ -344,6 +371,8 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
     check_cache_kernel(feats, w, bb, lab, s, check)
     check_training_kernels(train_model, train_cfg, b, n_sm, clock_hz, check,
                            record)
+    check_new_shapes(model, batch, cfg, train_model, n_sm, clock_hz, check,
+                     record)
     return records
 
 
@@ -668,6 +697,68 @@ def check_wide_heads(b, length, gen, n_sm, clock_hz, check, record):
            iters=50)
 
 
+def clip_attention_inputs(cfg, b, gen):
+    """q, k, v and dout of the CLIP tower's self-attention at batch ``b``,
+    f32, in the call site's layout: (B, H, L, D) views of (B, L, H, D)
+    buffers, as models/clip/model.py::_mhsa_fused passes its projections."""
+    import torch
+    heads = cfg.clip.vision_heads
+    shape = (b, cfg.clip.grid_size ** 2 + 1, heads,
+             cfg.clip.vision_width // heads)
+    return tuple(torch.randn(shape, generator=gen).cuda().transpose(1, 2)
+                 for _ in range(4))
+
+
+def record_clip_attention(q, k, v, dout, suffix, n_sm, clock_hz, record):
+    """K1's f32 route and K4 at the CLIP tower's call site (K4 through the
+    autograd.Function without a bias, as the tower calls it), recorded as
+    ``attention_fwd_clip_f32<suffix>`` and ``attention_bwd<suffix>``
+    against their plain versions (bf16 products) and timed beside SDPA on
+    contiguous bf16 copies. -> (one product's and the exponentials'
+    bound times, s)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hoigen_tpu_torch.ops.attention import attention_bwd, \
+        attention_bwd_reference, attention_forward, attention_reference, \
+        fused_attention
+    bf16 = torch.bfloat16
+    b, heads, length, hd = q.shape
+    n_scores = b * heads * length * length
+    t_exp = n_scores / (EXP_PER_SM_PER_CLOCK * n_sm * clock_hz)
+    t_mm = 2 * n_scores * hd / BF16_TC_FLOPS       # one of the products
+    q16, k16, v16 = (t.contiguous().to(bf16) for t in (q, k, v))
+    out, stats = attention_forward(q, k, v, return_stats=True)
+    record(f"attention_fwd_clip_f32{suffix}",
+           "hoigen_tpu_torch/csrc/attention.cu",
+           "hoigen_tpu/ops/attention.py:48", out,
+           attention_reference(q, k, v, compute_dtype=bf16),
+           lambda: fused_attention(q, k, v),
+           lambda: attention_reference(q, k, v, compute_dtype=bf16),
+           lambda: F.scaled_dot_product_attention(q16, k16, v16),
+           nbytes(q, k, v, out), (2 * t_mm, t_exp), iters=50)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fused_attention(*ins, None), ins, dout)
+    want = attention_bwd_reference(
+        q, k, v, None, attention_reference(q, k, v, compute_dtype=bf16),
+        dout, compute_dtype=bf16)[:3]
+    q16g, k16g, v16g = (t.clone().requires_grad_() for t in (q16, k16, v16))
+    o16 = F.scaled_dot_product_attention(q16g, k16g, v16g)
+    do16 = dout.contiguous().to(bf16)
+    record(f"attention_bwd{suffix}", "hoigen_tpu_torch/csrc/attention.cu",
+           "hoigen_tpu/ops/attention.py:95", got, want,
+           lambda: attention_bwd(q, k, v, None, out, dout, stats=stats),
+           lambda: attention_bwd_reference(q, k, v, None, out, dout,
+                                           compute_dtype=bf16),
+           lambda: torch.autograd.grad(o16, (q16g, k16g, v16g), do16,
+                                       retain_graph=True),
+           # inputs q, k, v, out, dout and the forward's statistics;
+           # outputs dq, dk, dv
+           nbytes(q, k, v, out, dout, stats, q, k, v), (5 * t_mm, t_exp),
+           iters=50)
+    return t_mm, t_exp
+
+
 def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     """Phase 3, the training step's kernels: K1 and K4 at the CLIP tower's
     shapes, (B, 12, 197, 64) f32 (K4 through the autograd.Function, so
@@ -675,35 +766,18 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
     import torch
     import torch.nn.functional as F
 
-    from hoigen_tpu_torch.ops.attention import attention_bwd, \
-        attention_bwd_reference, attention_forward, attention_reference, \
-        fused_attention
+    from hoigen_tpu_torch.ops.attention import attention_bwd_reference, \
+        attention_reference, fused_attention
     from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
         fused_cache_logits, kernel_operands
 
     params, buffers = model
     gen = torch.Generator().manual_seed(2)
     bf16 = torch.bfloat16
-    heads = cfg.clip.vision_heads
-    length = cfg.clip.grid_size ** 2 + 1
-    hd = cfg.clip.vision_width // heads
-    # the call site's layout: (B, H, L, D) views of (B, L, H, D) buffers,
-    # as models/clip/model.py::_mhsa_fused passes its projections
-    q, k, v, dout = (torch.randn((b, length, heads, hd), generator=gen)
-                     .cuda().transpose(1, 2) for _ in range(4))
-    n_scores = b * heads * length * length
-    t_exp = n_scores / (EXP_PER_SM_PER_CLOCK * n_sm * clock_hz)
-    t_mm = 2 * n_scores * hd / BF16_TC_FLOPS       # one of the products
-    # the SDPA yardsticks on contiguous bf16 copies, as in earlier runs
-    q16, k16, v16 = (t.contiguous().to(bf16) for t in (q, k, v))
-    out, stats = attention_forward(q, k, v, return_stats=True)
-    record("attention_fwd_clip_f32", "hoigen_tpu_torch/csrc/attention.cu",
-           "hoigen_tpu/ops/attention.py:48", out,
-           attention_reference(q, k, v, compute_dtype=bf16),
-           lambda: fused_attention(q, k, v),
-           lambda: attention_reference(q, k, v, compute_dtype=bf16),
-           lambda: F.scaled_dot_product_attention(q16, k16, v16),
-           nbytes(q, k, v, out), (2 * t_mm, t_exp), iters=50)
+    q, k, v, dout = clip_attention_inputs(cfg, b, gen)
+    _, heads, length, hd = q.shape
+    t_mm, t_exp = record_clip_attention(q, k, v, dout, "", n_sm, clock_hz,
+                                        record)
     # ... and at the generator pipeline's crop encodes (phase 9): main_vae's
     # batch of 256, prepare_data's 64 and the crop encoder's chunk of 32,
     # in the call site's layout
@@ -767,26 +841,6 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
         q48, k48, v48, b48, attention_reference(q48, k48, v48, b48,
                                                 compute_dtype=bf16),
         g48, compute_dtype=bf16))
-    # ... and without a bias, as the CLIP tower calls it, where it is timed
-    ins = [t.clone().requires_grad_() for t in (q, k, v)]
-    got = torch.autograd.grad(fused_attention(*ins, None), ins, dout)
-    want = attention_bwd_reference(
-        q, k, v, None, attention_reference(q, k, v, compute_dtype=bf16),
-        dout, compute_dtype=bf16)[:3]
-    q16g, k16g, v16g = (t.clone().requires_grad_() for t in (q16, k16, v16))
-    o16 = F.scaled_dot_product_attention(q16g, k16g, v16g)
-    do16 = dout.contiguous().to(bf16)
-    record("attention_bwd", "hoigen_tpu_torch/csrc/attention.cu",
-           "hoigen_tpu/ops/attention.py:95", got, want,
-           lambda: attention_bwd(q, k, v, None, out, dout, stats=stats),
-           lambda: attention_bwd_reference(q, k, v, None, out, dout,
-                                           compute_dtype=bf16),
-           lambda: torch.autograd.grad(o16, (q16g, k16g, v16g), do16,
-                                       retain_graph=True),
-           # inputs q, k, v, out, dout and the forward's statistics;
-           # outputs dq, dk, dv
-           nbytes(q, k, v, out, dout, stats, q, k, v), (5 * t_mm, t_exp),
-           iters=50)
     check_clip_block_layout(params, cfg, b)
     check_wide_heads(b, length, gen, n_sm, clock_hz, check, record)
 
@@ -817,6 +871,143 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
            (2 * rows * w.shape[0] * (w.shape[1] + lab.shape[1])
             / BF16_TC_FLOPS,), iters=50)
 
+
+
+def check_new_shapes(model, batch, cfg, train_model, n_sm, clock_hz, check,
+                     record):
+    """Phase 3, the shapes that phases 11 and 12 give the kernels: K1, K2
+    and K3 at batch 1 (the inference CLI's one-image step, 600 and 117
+    classes); at the per-rank batch 2 of a global batch of 4 over two data
+    ranks, K1 and K2 at phase 7's buckets (rank 0's rows, padded to the
+    global plane), the CLIP tower's K1 and K4 and K3 at 117 classes; and
+    K3 on half the cache rows (a model axis of 2: L of (600, 600) and
+    (117, 117)). Each against its plain version, the first bucket's, the
+    CLIP tower's and each K3 timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from hoigen_tpu_torch.models.detr.model import downsample_mask
+    from hoigen_tpu_torch.models.detr.resnet import _bottleneck_nhwc
+    from hoigen_tpu_torch.ops.attention import attention_reference, \
+        fused_attention
+    from hoigen_tpu_torch.ops.fused_resnet import \
+        bottleneck_chain_reference, fused_bottleneck_chain
+    from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
+        fused_cache_logits, kernel_operands
+    from hoigen_tpu_torch.ops.pixels import pad_mask_from_sizes
+
+    params, buffers = model
+    gen = torch.Generator().manual_seed(5)
+    dev, bf16 = "cuda", torch.bfloat16
+    heads = cfg.detr.nheads
+    hd = cfg.detr.hidden_dim // heads
+
+    def k1(name, sizes, ph, pw, timed):
+        nb = len(sizes)
+        fh, fw = -(-ph // 32), -(-pw // 32)
+        q, k, v = (torch.randn((nb, heads, fh * fw, hd), generator=gen)
+                   .to(dev, bf16) for _ in range(3))
+        kb = torch.where(downsample_mask(pad_mask_from_sizes(
+            torch.as_tensor(sizes, device=dev, dtype=torch.float32), ph, pw),
+            fh, fw).reshape(nb, fh * fw), -1e9, 0.0).float()
+        got, want = fused_attention(q, k, v, kb), \
+            attention_reference(q, k, v, kb)
+        if not timed:
+            return check(f"{name} ({ph}, {pw}), {fh * fw} keys", got, want)
+        length = fh * fw
+        record(name, "hoigen_tpu_torch/csrc/attention.cu",
+               "hoigen_tpu/ops/attention.py:48", got, want,
+               lambda: fused_attention(q, k, v, kb),
+               lambda: attention_reference(q, k, v, kb),
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=kb.to(bf16)[:, None, None, :]),
+               nbytes(q, k, v, kb, q),
+               (4 * q.numel() * length / BF16_TC_FLOPS,
+                nb * heads * length * length
+                / (EXP_PER_SM_PER_CLOCK * n_sm * clock_hz)), iters=50)
+
+    def varied(conv):
+        n = conv["scale"].shape[0]
+        return {"w": conv["w"],
+                "scale": (1 + 0.1 * torch.randn(n, generator=gen)).to(dev),
+                "bias": (0.1 * torch.randn(n, generator=gen)).to(dev)}
+    blocks = [{n: varied(c) for n, c in bp.items()}
+              for bp in params["detr"]["backbone"]["layers"][0][1:]]
+
+    def k2(name, nb, ph, pw, timed):
+        x = torch.relu(torch.randn((nb, ph // 4, pw // 4, 256),
+                                   generator=gen)).to(dev, bf16)
+        got, want = fused_bottleneck_chain(x, blocks), \
+            bottleneck_chain_reference(x, blocks)
+        if not timed:
+            return check(f"{name} {tuple(x.shape)}", got, want)
+
+        def unfused():
+            y = x
+            for bp in blocks:
+                y = _bottleneck_nhwc(y, bp, 1)
+            return y
+        flops = 2 * x.numel() // 256 * len(blocks) * (2 * 256 * 64
+                                                        + 9 * 64 * 64)
+        weight_bytes = sum(cv["w"].numel() * 2 + nbytes(cv["scale"],
+                                                        cv["bias"])
+                           for bp in blocks for cv in bp.values())
+        record(name, "hoigen_tpu_torch/csrc/fused_resnet.cu",
+               "hoigen_tpu/ops/fused_resnet.py:47", got, want,
+               lambda: fused_bottleneck_chain(x, blocks),
+               lambda: bottleneck_chain_reference(x, blocks), unfused,
+               nbytes(x, x) + weight_bytes, (flops / BF16_TC_FLOPS,),
+               iters=20)
+
+    def k3(name, nb, upt, bufs, rows_frac):
+        n_pairs = cfg.upt.proposals.n_pairs
+        feats = torch.randn((nb, n_pairs, 512), generator=gen)
+        feats = (feats / feats.norm(dim=-1, keepdim=True)).to(dev)
+        r = upt["adapter_H_w"].shape[0] // rows_frac
+        w = upt["adapter_H_w"].detach()[:r].contiguous()
+        bb = upt["adapter_H_b"].detach()[:r].contiguous()
+        lab = bufs["one_hots_H"][:r].contiguous()
+        s = bufs["sample_lens_H"]
+        w16, lt16, s_pad = kernel_operands(w, lab, s)
+        lab16 = lab.to(bf16)
+
+        def two_matmuls():
+            phi = torch.matmul(feats.to(bf16), w16.t()).float() + bb
+            return torch.matmul(phi.to(bf16), lab16).float() / s
+        n_rows = nb * n_pairs
+        record(name, "hoigen_tpu_torch/csrc/cache_logits.cu",
+               "hoigen_tpu/ops/pallas_cache.py:44",
+               fused_cache_logits(feats, w, bb, lab, s),
+               cache_logits_reference(feats, w, bb, lab, s, bf16),
+               lambda: fused_cache_logits(feats, w, bb, lab, s),
+               lambda: cache_logits_reference(feats, w, bb, lab, s, bf16),
+               two_matmuls,
+               nbytes(feats, w16, bb, lt16, s_pad) + n_rows * lab.shape[1]
+               * 4, (2 * n_rows * r * (512 + lab.shape[1])
+                     / BF16_TC_FLOPS,), iters=50)
+
+    # batch 1: the 800x1344 bucket of phase 5's feed, its first image
+    hi, wi = batch["images"].shape[2:]
+    sizes1 = batch["image_sizes"][:1].tolist()
+    k1("attention_fwd_b1", sizes1, hi, wi, True)
+    k2("bottleneck_chain_fwd_b1", 1, hi, wi, True)
+    tparams, tbuffers = train_model
+    k3("cache_logits_fwd_b1", 1, params["upt"], buffers, 1)
+    k3("cache_logits_fwd_b1_c117", 1, tparams["upt"], tbuffers, 1)
+    # per-rank batch 2 at phase 7's buckets (rank 0's rows of batch 4)
+    for i, ((ph, pw), sizes) in enumerate(eval_feeds(4).items()):
+        k1("attention_fwd_b2", sizes[:2], ph, pw, i == 0)
+        k2("bottleneck_chain_fwd_b2", 2, ph, pw, i == 0)
+    # ... and the training step's and the CLI's at a rank's batch 2: the
+    # CLIP tower's K1 (f32 route) and K4, and K3 over all 234 rows of 117
+    # classes
+    record_clip_attention(*clip_attention_inputs(cfg, 2, gen), "_b2", n_sm,
+                          clock_hz, record)
+    k3("cache_logits_fwd_b2_c117", 2, tparams["upt"], tbuffers, 1)
+    # half of the cache rows, at the eval step's batch
+    b = batch["images"].shape[0]
+    k3("cache_logits_fwd_half_rows", b, params["upt"], buffers, 2)
+    k3("cache_logits_fwd_half_rows_c117", b, tparams["upt"], tbuffers, 2)
 
 # --------------------------------------------------------------- eval step
 def spread_detection_heads(params, seed, scale=30.0):
@@ -1647,15 +1838,14 @@ def vcoco_card_and_cpu(mf, work, seed, batch):
             "means": means}
 
 
-def cli_phase(args, card):
+def cli_phase(args, card, work, ctx):
     """Phase 8: ``cli/main_finetune.py::main`` at full width from files on
     disk, in a temporary working directory: an epoch of training, then
     --eval and --cache resumed from its checkpoint, each with the launch
     counters set to 0 just before; then V-COCO at the small configuration
-    on the card and on the CPU. Returns the ``cli_run`` record."""
-    import shutil
-    import tempfile
-
+    on the card and on the CPU, in ``work`` (made here, kept for phases
+    11 and 12, which find its paths in ``ctx``). Returns the ``cli_run``
+    record."""
     import numpy as np
     import torch
 
@@ -1665,7 +1855,7 @@ def cli_phase(args, card):
     from hoigen_tpu_torch.utils.config import parse_config
 
     t8 = time.perf_counter()
-    work = tempfile.mkdtemp(prefix="cli_")
+    os.makedirs(work)
     cwd = os.getcwd()
     names, wrappers = kernel_wrappers()
     record = {"card": card, "gen_rounds": CLI_GEN_ROUNDS,
@@ -1768,9 +1958,9 @@ def cli_phase(args, card):
                 log(f"cli cache: 80 .mat files, {run['mat_rows']} rows ok")
             torch.cuda.empty_cache()
         record["vcoco"] = vcoco_card_and_cpu(mf, work, args.seed, args.batch)
+        ctx.update(argv=argv, data=data, paths=paths, out=out)
     finally:
         os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
     record["seconds"] = time.perf_counter() - t8
     log(f"phase 8 took {record['seconds']:.1f} s")
     return record
@@ -1939,10 +2129,11 @@ def generator_small_card_and_cpu(work, data, seed):
             "losses_cpu": cl}
 
 
-def generator_phase(args, card):
+def generator_phase(args, card, work, ctx):
     """Phase 9: the generator pipeline through its CLIs at full width
     (ViT-B/16 CLIP with its text tower, from a file written from
-    ``--seed``) on GEN_SIZES' tree, in a temporary working directory:
+    ``--seed``) on GEN_SIZES' tree, in the working directory ``work``
+    (made here, kept for phase 12, which finds the splits in ``ctx``):
     ``prepare_data`` crops, gt-features, pair-embeddings (device crop
     encoder) and global-caches, then ``main_vae`` and ``finetune_ship``
     for each family at batch 256, each run with the launch counters set
@@ -1950,8 +2141,6 @@ def generator_phase(args, card):
     CPU. Returns the ``generator_run`` record."""
     import math as _math
     import pickle
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -1966,7 +2155,7 @@ def generator_phase(args, card):
 
     t9 = time.perf_counter()
     per_encode = VIT_B16.vision_layers      # K1 launches a CLIP encode
-    work = tempfile.mkdtemp(prefix="generator_")
+    os.makedirs(work)
     cwd = os.getcwd()
     record = {"card": card, "images": len(GEN_SIZES), "runs": {},
               "batch": GEN_BATCH, "epochs": 1}
@@ -2175,9 +2364,9 @@ def generator_phase(args, card):
             torch.cuda.empty_cache()
         record["small"] = generator_small_card_and_cpu(work, data,
                                                        args.seed)
+        ctx.update(splits=splits)
     finally:
         os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
     record["seconds"] = time.perf_counter() - t9
     log(f"phase 9 took {record['seconds']:.1f} s")
     return record
@@ -2329,6 +2518,1025 @@ def detr_finetune_phase(args, card):
         shutil.rmtree(work, ignore_errors=True)
     record["seconds"] = time.perf_counter() - t10
     log(f"phase 10 took {record['seconds']:.1f} s")
+    return record
+
+
+# ------------------------------------------------- parallelism on one card
+# phase 11 runs the CLI with its dropout off (--feat-mask-type 1 and the
+# CLIP adapters' rate at 0): each data rank draws its own dropout, so only
+# such runs can equal one process's
+P11_FLAGS = ["--feat-mask-type", "1"]
+P11_TIMEOUT = 600
+# the flagship's one training step (f32 towers): 12 CLIP blocks forward
+# and backward, H/O/U twice (the generated pairs)
+P11_STEP_LAUNCHES = [12, 12, 0, 6]
+# the first update of two ranks against one process's: each leaf's
+# clipped gradient relative to its scale and each group's norm before the
+# clip. The ranks' forward parts from one process's as their eval does
+# (p11_eval_cause); an H100 gave 4.5e-2 (bf16 towers) and 9.8e-4 (f32)
+# for the CLI's runs and 1.9e-4 for the f32 flagship's step, where a
+# gradient left unsummed, or summed twice, is off by its own size
+P11_GRAD_TOL = {"bf16": 0.25, "f32": 1e-2, "step": 1e-3}
+
+
+def no_dropout_config(mf):
+    """``mf.make_model_config`` with the CLIP adapters' dropout at 0."""
+    make = mf.make_model_config
+
+    def config(cfg, device=None):
+        m = make(cfg, device)
+        return dataclasses.replace(m, clip=dataclasses.replace(
+            m.clip, adapter_dropout=0.0))
+    return config
+
+
+class P11Probe:
+    """Keeps what phase 11's runs compare beyond their results, while it
+    is entered: of the optimizer's first step, each learning-rate group's
+    gradient norm before the clip (``norms``: the global norm, over the
+    data axis and the sharded rows) and the clipped gradients it applies
+    (``grads``, numpy in the optimizer's leaf order), so that a gradient
+    summed wrongly shows even where the clip rescales it; with ``mf``, the
+    CLI eval loop's first step (``eval``: the step, its model, its feed
+    and its outputs as numpy)."""
+
+    def __init__(self, mf=None):
+        self.mf = mf
+        self.norms = self.grads = self.eval = None
+
+    def __enter__(self):
+        import numpy as np
+
+        from hoigen_tpu_torch.engine import hoi_model as hm
+        probe, mf = self, self.mf
+        self.saved = hm.GroupedAdamW.step, getattr(mf, "make_eval_step",
+                                                    None)
+        opt_step, make_eval_step = self.saved
+
+        def step(opt):
+            if probe.norms is None:
+                opt._fill_grads()
+                probe.norms = [float(opt._norm(g["params"]))
+                               for g in opt.opt.param_groups]
+            opt_step(opt)
+            if probe.grads is None:
+                probe.grads = [t.grad.detach().cpu().numpy().copy()
+                               for g in opt.opt.param_groups
+                               for t in g["params"]]
+
+        def make_probed(cfg, device=None):
+            eval_step = make_eval_step(cfg, device)
+
+            def probed(params, buffers, batch):
+                out = eval_step(params, buffers, batch)
+                if probe.eval is None:
+                    probe.eval = {"step": eval_step, "model": (params,
+                                                               buffers),
+                                  "batch": {k: np.array(v)
+                                            for k, v in batch.items()},
+                                  "out": {k: v.cpu().numpy()
+                                          for k, v in out.items()}}
+                return out
+            return probed
+        hm.GroupedAdamW.step = step
+        if mf is not None:
+            mf.make_eval_step = make_probed
+        return self
+
+    def __exit__(self, *exc):
+        from hoigen_tpu_torch.engine import hoi_model as hm
+        hm.GroupedAdamW.step = self.saved[0]
+        if self.mf is not None:
+            self.mf.make_eval_step = self.saved[1]
+
+
+def p11_cli_runs(mf, argv, out, cache_out, modes, wrappers, resume=None,
+                 probe=None):
+    """``main`` in ``modes`` (train, eval, cache) from ``argv``, the
+    launch counters set to 0 before each; --eval and --cache from the
+    checkpoint under ``resume`` (None: ``out``, the training's); the
+    training and --eval runs inside ``probe`` (a :class:`P11Probe`) where
+    one is given. -> {mode: record}."""
+    import contextlib
+
+    import numpy as np
+
+    from hoigen_tpu_torch.parallel import process_index
+    runs = {}
+    resume = resume or out
+    extra = {"train": ["--output-dir", out],
+             "eval": ["--output-dir", out, "--eval", "true", "--resume",
+                      resume],
+             "cache": ["--output-dir", cache_out, "--cache", "true",
+                       "--resume", resume]}
+    for mode in modes:
+        with probe if probe is not None and mode != "cache" \
+                else contextlib.nullcontext():
+            result, seconds, counts, stage_s, _ = cli_run(
+                mf, argv + extra[mode], wrappers)
+        run = {"seconds": seconds, "launches": counts, "stages_s": stage_s}
+        if mode == "train":
+            run.update(steps=result.iteration, losses=list(result._losses))
+        elif mode == "eval":
+            run.update(ap=np.asarray(result["ap"], np.float64).tolist(),
+                       mAP=result["mAP"])
+        elif process_index() == 0:
+            run["mat_digest"] = mat_digest(cache_out)
+        runs[mode] = run
+    return runs
+
+
+def mat_digest(cache_dir):
+    """(rows, sum) of each of the 80 official .mat files."""
+    import numpy as np
+    import scipy.io as sio
+    out = []
+    for obj in range(1, 81):
+        m = sio.loadmat(os.path.join(cache_dir, f"detections_{obj:02d}.mat"))
+        cells = [c for c in np.asarray(m["all_boxes"]).ravel() if c.size]
+        out.append([int(sum(c.shape[0] for c in cells)),
+                    float(sum(np.float64(c).sum() for c in cells))])
+    return out
+
+
+def train_flagship(seed, device):
+    """The full-width training configuration of phase 6 with the
+    language-aware term on, its model and global batch (batch 4), from
+    ``seed``, the model on ``device``."""
+    import torch
+
+    from hoigen_tpu_torch.engine.hoi_model import HOIModelConfig, \
+        init_hoi_model, make_example_batch
+    from hoigen_tpu_torch.models.cache import random_caches
+    from hoigen_tpu_torch.models.upt import UPTConfig
+    cfg = HOIModelConfig(upt=UPTConfig(num_classes=117, num_shot=2,
+                                       cache_model="gen_feat",
+                                       use_pallas_cache=True,
+                                       generate_feature=True, LA=True),
+                         dtype="float32")
+    caches = random_caches(117, 2, num_objects=80, seed=seed)
+    params, buffers = init_hoi_model(torch.Generator().manual_seed(seed),
+                                     cfg, caches, device=device)
+    spread_detection_heads(params, seed)
+    batch = make_example_batch(
+        cfg, batch_size=4, detr_hw=(800, 1344), seed=seed,
+        device_clip_stream=True,
+        object_class_multihot=caches.object_class_multihot)
+    return cfg, params, buffers, batch
+
+
+def p11_step(mesh, seed, wrappers):
+    """One training step of the flagship on ``mesh``, dropout off: each
+    rank its rows of the global batch, the cache rows sharded over the
+    model axis (``mesh`` None: one process, the whole batch). -> (loss,
+    [launches by kernel], the H branch's rows here, {leaf: the clipped
+    gradient it was updated with, numpy, the sharded leaves' gathered
+    whole over the model group}, each group's norm before the clip)."""
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.engine.hoi_model import make_optimizer, \
+        make_train_step
+    from hoigen_tpu_torch.engine.partition import trainable_leaves
+    from hoigen_tpu_torch.parallel import gather_pyobj, is_cache_row_leaf, \
+        shard_batch, shard_cache_rows
+    from hoigen_tpu_torch.parallel.mesh import _CACHE_ROW_LEAVES
+    cfg, params, buffers, batch = train_flagship(seed, "cuda")
+    if mesh is not None:
+        params, buffers = shard_cache_rows(mesh, params, buffers)
+        batch = shard_batch(mesh, batch)
+    opt = make_optimizer(mesh=mesh)(params)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    for w in wrappers:
+        w.launches = 0
+    with P11Probe() as probe:
+        loss = float(step(params, buffers, batch)["loss"])
+    torch.cuda.synchronize()
+    counts = [w.launches for w in wrappers]
+    grads = {}
+    for path, t in trainable_leaves(params):
+        g = t.grad.cpu().numpy()
+        if mesh is not None and mesh.n_model > 1 and is_cache_row_leaf(path):
+            # the model group is every process on a (1, 2) mesh
+            g = np.concatenate(gather_pyobj(g),
+                               axis=_CACHE_ROW_LEAVES[path[-1]])
+        grads["/".join(map(str, path))] = g
+    return loss, counts, int(params["upt"]["adapter_H_w"].shape[0]), grads, \
+        probe.norms
+
+
+def p11_worker(spec_json):
+    """One process of phase 11's gloo pair on ``cuda:0``: the CLI's
+    training epoch of each variant (bf16 and f32 towers), and its --eval
+    and --cache from the one-process run's checkpoint, then one training
+    step on a (2, 1) and on a (1, 2) mesh. Writes its record to
+    ``<out>/rank<k>.json``, the clipped gradients of each training run's
+    first step and of each mesh step to ``<out>/grads_<run>_rank<k>.npz``
+    and its first eval step's feed and outputs of each variant to
+    ``<out>/eval0_<variant>_rank<k>.pkl``."""
+    import pickle
+
+    import numpy as np
+    spec = json.loads(spec_json)
+    rank = spec["rank"]
+    out = spec["out"]
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{spec['port']}",
+                      NUM_PROCESSES="2", PROCESS_ID=str(rank))
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from hoigen_tpu_torch.cli import main_finetune as mf
+    from hoigen_tpu_torch.parallel import init_distributed, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the kernels load from the parent's build under hoigen_tpu_torch/_build
+    init_distributed(device="cuda", backend="gloo")
+    _, wrappers = kernel_wrappers()
+    mf.make_model_config = no_dropout_config(mf)
+    os.chdir(spec["cwd"])
+    t0 = time.perf_counter()
+    record = {"rank": rank, "device": torch.cuda.current_device()}
+    for name, v in spec["variants"].items():
+        probe = P11Probe(mf)
+        record[name] = p11_cli_runs(mf, v["argv"], v["out"], v["cache_out"],
+                                    ("train", "eval", "cache"), wrappers,
+                                    v["resume"], probe)
+        record.setdefault("norms", {})[name] = probe.norms
+        np.savez(os.path.join(out, f"grads_{name}_rank{rank}.npz"),
+                 *probe.grads)
+        with open(os.path.join(out, f"eval0_{name}_rank{rank}.pkl"),
+                  "wb") as f:
+            pickle.dump({k: probe.eval[k] for k in ("batch", "out")}, f)
+        del probe
+    for name, shape in (("dp", (2, 1)), ("tp", (1, 2))):
+        loss, counts, rows, grads, norms = p11_step(make_mesh(*shape),
+                                                    spec["seed"], wrappers)
+        record[name] = {"loss": loss, "launches": counts, "h_rows": rows,
+                        "norms": norms}
+        np.savez(os.path.join(out, f"grads_{name}_rank{rank}.npz"), **grads)
+        torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def grads_rel_diff(got, want):
+    """The largest difference of two gradient sets (lists or dicts of
+    arrays, leaf by leaf), each leaf's relative to its largest magnitude
+    in ``want``. -> (difference, the leaf where it is)."""
+    import numpy as np
+    keys = list(want) if isinstance(want, dict) else range(len(want))
+    if len(got) != len(want):
+        fail(f"{len(got)} gradient leaves against {len(want)}")
+    worst = (0.0, None)
+    for k in keys:
+        g, w = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        if g.shape != w.shape:
+            fail(f"gradient leaf {k}: shape {g.shape} against {w.shape}")
+        d = float(np.abs(g - w).max(initial=0.0)) / max(
+            float(np.abs(w).max(initial=0.0)), 1e-30)
+        if not d <= worst[0]:
+            worst = (d, k)
+    return worst
+
+
+def norms_rel_diff(got, want):
+    """The largest relative difference of two lists of norms."""
+    if len(got) != len(want):
+        fail(f"{len(got)} gradient norms against {len(want)}")
+    return max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
+
+
+def p11_eval_cause(name, probe, path):
+    """Where a rank's eval outputs part from one process's: rank 0's first
+    feed must be the one-process feed's first two rows, bit for bit, and
+    the one-process step on that feed (batch 2, the global plane) must
+    give rank 0's outputs bit for bit; the difference of one process's
+    batch of 4, its first two rows, from rank 0's is then the batch's
+    alone. -> record."""
+    import pickle
+
+    import numpy as np
+    import torch
+    with open(path, "rb") as f:
+        r0 = pickle.load(f)
+    one = probe.eval
+    n = len(next(iter(r0["batch"].values())))
+    for k, v in r0["batch"].items():
+        if not np.array_equal(v, one["batch"][k][:n]):
+            fail(f"phase 11b {name}: rank 0's first eval feed {k} is not "
+                 f"one process's first {n} rows")
+    with torch.no_grad():
+        again = {k: v.cpu().numpy() for k, v in one["step"](
+            *one["model"], r0["batch"]).items()}
+    same = {k: np.array_equal(again[k], v) for k, v in r0["out"].items()}
+    batch_diff = {k: float(np.abs(np.float64(one["out"][k][:n])
+                                  - np.float64(v)).max())
+                  for k, v in r0["out"].items()}
+    rec = {"feed_rows_equal": True, "batch2_step_equals_rank": same,
+           "batch4_rows_max_abs_diff": batch_diff}
+    log(f"parallel {name}: rank 0's first eval feed is one process's first "
+        f"{n} rows bit for bit; one process's step on it gives rank 0's "
+        f"outputs bit for bit: {same}; one process's batch of 4 differs "
+        f"from them in its first {n} rows by "
+        + ", ".join(f"{k} {v:.3e}" for k, v in batch_diff.items()))
+    if not all(same.values()):
+        fail(f"phase 11b {name}: one process's eval step on rank 0's feed "
+             f"does not give rank 0's outputs")
+    return rec
+
+
+def p11_compare(name, ranks, ref, steps, n_b, names, rtol, probe, out,
+                grad_tol):
+    """Phase 11b's checks of one variant: each rank's launches (K1 and K2
+    run in the DETR tower in bf16 only); the first step's loss (before
+    any update: Adam turns rounding in near-zero gradients into steps of
+    the learning rate, so later steps part) within ``rtol`` of one
+    process's; the clipped gradients of the first update equal on both
+    ranks and, leaf by leaf, within ``grad_tol`` of the leaf's scale of
+    one process's (``probe``'s); from one checkpoint, both ranks' merged
+    AP vectors equal and within rtol 1e-6 of one process's, the .mat
+    files' row counts equal and their sums within ``rtol``, and rank 0's
+    first eval step held against one process's (``p11_eval_cause``).
+    -> record."""
+    import numpy as np
+    grads = []
+    for r in range(2):
+        with np.load(os.path.join(out, f"grads_{name}_rank{r}.npz")) as z:
+            grads.append([z[f"arr_{i}"] for i in range(len(z.files))])
+    if grads_rel_diff(grads[1], grads[0])[0] != 0.0 or \
+            ranks[0]["norms"][name] != ranks[1]["norms"][name]:
+        fail(f"phase 11b {name}: the ranks' first updates differ")
+    grad_diff, grad_leaf = grads_rel_diff(grads[0], probe.grads)
+    norm_diff = norms_rel_diff(ranks[0]["norms"][name], probe.norms)
+    log(f"parallel {name}: the first update's clipped gradients and norms "
+        f"equal on both ranks; {len(probe.grads)} leaves within "
+        f"{grad_diff:.3e} of their scale of one process's (leaf "
+        f"{grad_leaf}), the groups' norms before the clip "
+        f"{ranks[0]['norms'][name]} within {norm_diff:.3e} relative")
+    if not max(grad_diff, norm_diff) <= grad_tol:
+        fail(f"phase 11b {name}: the first update's gradients differ from "
+             f"one process's")
+    cause = p11_eval_cause(name, probe,
+                           os.path.join(out, f"eval0_{name}_rank0.pkl"))
+    d = int(name == "bf16")
+    expect = {"train": [(6 * d + 12) * steps, 12 * steps, d * steps,
+                        3 * steps],
+              "eval": [6 * d * n_b, 0, d * n_b, 3 * n_b],
+              "cache": [6 * d * n_b, 0, d * n_b, 3 * n_b]}
+    for r in ranks:
+        cli = r[name]
+        log(f"parallel {name}: gloo rank {r['rank']} on cuda:{r['device']}: "
+            + "; ".join(f"{m} {cli[m]['seconds']:.2f} s, launches "
+                        f"{dict(zip(names, cli[m]['launches']))}"
+                        for m in ("train", "eval", "cache")))
+        for m, want in expect.items():
+            if cli[m]["launches"] != want:
+                fail(f"phase 11b {name}: rank {r['rank']} {m} launches "
+                     f"{cli[m]['launches']}, expected {want}")
+        if cli["train"]["steps"] != steps:
+            fail(f"phase 11b {name}: {cli['train']['steps']} steps, one "
+                 f"process {steps}")
+    if ranks[0][name]["eval"]["ap"] != ranks[1][name]["eval"]["ap"]:
+        fail(f"phase 11b {name}: the ranks' merged AP vectors differ")
+    ap, want = (np.asarray(x, np.float64) for x in (
+        ranks[0][name]["eval"]["ap"], ref["eval"]["ap"]))
+    got, want_d = (np.asarray(x, np.float64) for x in (
+        ranks[0][name]["cache"]["mat_digest"], ref["cache"]["mat_digest"]))
+    losses = np.asarray(ranks[0][name]["train"]["losses"])
+    rec = {"ap_max_abs_diff": float(np.abs(ap - want).max()),
+           "mAP": ranks[0][name]["eval"]["mAP"], "mAP_one": ref["eval"]["mAP"],
+           "mat_rows": int(got[:, 0].sum()),
+           "mat_count_diffs": int((got[:, 0] != want_d[:, 0]).sum()),
+           "mat_sum_rel_diff": float((np.abs(got[:, 1] - want_d[:, 1])
+                                      / np.maximum(np.abs(want_d[:, 1]),
+                                                   1e-30)).max()),
+           "loss_rel_diff": (np.abs(losses - ref["train"]["losses"])
+                             / np.asarray(ref["train"]["losses"])).tolist(),
+           "grad_rel_diff": grad_diff, "norm_rel_diff": norm_diff,
+           "eval_cause": cause,
+           "seconds": {m: ranks[0][name][m]["seconds"]
+                       for m in ("train", "eval", "cache")},
+           "seconds_one": {m: ref[m]["seconds"]
+                           for m in ("train", "eval", "cache")}}
+    log(f"parallel {name}: the merged AP vector within "
+        f"{rec['ap_max_abs_diff']:.3e} of one process's (mAP {rec['mAP']:.6f}"
+        f", one process {rec['mAP_one']:.6f}); .mat rows {rec['mat_rows']}, "
+        f"{rec['mat_count_diffs']} objects' counts differ, sums within "
+        f"{rec['mat_sum_rel_diff']:.3e} relative; the 4 steps' losses "
+        f"within {', '.join(f'{x:.3e}' for x in rec['loss_rel_diff'])} "
+        f"relative")
+    if not rec["loss_rel_diff"][0] <= rtol:
+        fail(f"phase 11b {name}: the first step's loss differs from one "
+             f"process's")
+    if not np.allclose(ap, want, rtol=1e-6, atol=1e-9):
+        fail(f"phase 11b {name}: the AP vector differs from one process's")
+    if rec["mat_count_diffs"] or not want_d[:, 0].sum() or \
+            rec["mat_sum_rel_diff"] > rtol:
+        fail(f"phase 11b {name}: the .mat files differ from one process's")
+    return rec
+
+
+def parallel_phase(args, card, work, ctx):
+    """Phase 11: parallelism on one card, at phase 8's flags on phase 7's
+    tree with dropout off. (a) The CLI's training epoch and --eval in a
+    NCCL process group of one against the same runs without a group, bit
+    for bit; ``--devices 2`` refused on this one-card machine. (b) Two
+    processes on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    device): the training epoch, --eval and --cache against one process,
+    with the bf16 towers of phase 8 and with f32 towers (the random
+    weights' APs are zero: the .mat files, rows of boxes and scores, carry
+    the comparison), and the first update's gradients; and (c) one
+    training step of phase 6's model with the language-aware term on, on
+    a (1, 2) mesh, the cache rows sharded, and on a (2, 1) mesh, against
+    one process on the same global batch: losses and clipped gradients.
+    Returns the ``parallel_run`` record."""
+    import subprocess
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hoigen_tpu_torch.cli import main_finetune as mf
+    from hoigen_tpu_torch.parallel import init_distributed
+    from hoigen_tpu_torch.parallel.distributed import free_port
+    from hoigen_tpu_torch.utils.config import parse_config
+
+    t11 = time.perf_counter()
+    os.makedirs(work)
+    cwd = os.getcwd()
+    names, wrappers = kernel_wrappers()
+    argv = ctx["argv"] + P11_FLAGS
+    argv32 = argv + ["--dtype", "float32"]
+    record = {"card": card, "flags": " ".join(CLI_FLAGS + P11_FLAGS)}
+    saved = mf.make_model_config
+    try:
+        os.chdir(work)
+        mf.make_model_config = no_dropout_config(mf)
+        probes = {"bf16": P11Probe(mf), "f32": P11Probe(mf)}
+        ref = p11_cli_runs(mf, argv, os.path.join(work, "one"),
+                           os.path.join(work, "one_cache"),
+                           ("train", "eval", "cache"), wrappers,
+                           probe=probes["bf16"])
+        init_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail(f"phase 11a: backend {dist.get_backend()}")
+        try:
+            nccl = p11_cli_runs(mf, argv, os.path.join(work, "nccl"),
+                                os.path.join(work, "nccl_cache"),
+                                ("train", "eval"), wrappers)
+        finally:
+            dist.destroy_process_group()
+        ref32 = p11_cli_runs(mf, argv32, os.path.join(work, "one32"),
+                             os.path.join(work, "one32_cache"),
+                             ("train", "eval", "cache"), wrappers,
+                             probe=probes["f32"])
+    finally:
+        mf.make_model_config = saved
+        os.chdir(cwd)
+    for k, key in (("train", "losses"), ("eval", "ap")):
+        if nccl[k][key] != ref[k][key] or nccl[k]["launches"] != \
+                ref[k]["launches"]:
+            fail(f"phase 11a: NCCL world 1 {k} {key} differ from one "
+                 f"process's")
+    record.update(one_process=ref, nccl_world_1=nccl, one_process_f32=ref32)
+    log(f"parallel: NCCL at world size 1: losses "
+        f"{', '.join(f'{x:.6f}' for x in nccl['train']['losses'])} and the "
+        f"AP vector (mAP {nccl['eval']['mAP']:.6f}) bit for bit those of "
+        f"the run without a process group ok; train "
+        f"{nccl['train']['seconds']:.2f} s, eval {nccl['eval']['seconds']:.2f}"
+        f" s (one process: {ref['train']['seconds']:.2f} s, "
+        f"{ref['eval']['seconds']:.2f} s)")
+
+    try:
+        mf.main(parse_config(argv + ["--devices", "2", "--output-dir",
+                                     os.path.join(work, "devices2")]))
+    except RuntimeError as e:
+        if "need 2 CUDA devices; 1 are visible" not in str(e):
+            raise
+        log(f"parallel: --devices 2 refused: {e} ok")
+        record["devices_2"] = str(e)
+    else:
+        fail("phase 11: --devices 2 ran on a one-card machine")
+
+    torch.cuda.empty_cache()
+    port = free_port()
+    dp_out = os.path.join(work, "two")
+    os.makedirs(dp_out)
+    variants = {name: {"argv": a, "out": os.path.join(dp_out, name),
+                       "cache_out": os.path.join(dp_out, name + "_cache"),
+                       "resume": os.path.join(work, one)}
+                for name, a, one in (("bf16", argv, "one"),
+                                     ("f32", argv32, "one32"))}
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            spec = json.dumps({"rank": rank, "port": port,
+                               "variants": variants, "out": dp_out,
+                               "cwd": work, "seed": args.seed})
+            logs.append(open(os.path.join(work, f"rank{rank}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.p11_worker(sys.argv[1])", spec], cwd=str(ROOT),
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        for rank, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=P11_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                with open(os.path.join(work, f"rank{rank}.log")) as f:
+                    tail = f.read()[-4000:]
+                fail(f"phase 11b: rank {rank} ended with {rc}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    record["two_process_s"] = time.perf_counter() - t0
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(dp_out, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    record["two_processes"] = ranks
+    steps, n_b = ref["train"]["steps"], -(-len(EVAL_SIZES) // args.batch)
+    # a rank's batch of 2 takes other cuDNN and cuBLAS kernels than one
+    # process's batch of 4, which round otherwise (p11_eval_cause holds
+    # it: one process's step on rank 0's rows gives rank 0's outputs bit
+    # for bit, and its batch of 4 differs from them), and the random
+    # DETR's box head, spread by 30, multiplies that 30-fold in the boxes
+    # and the pairs' features: two bf16 ulps with bf16 towers; with f32
+    # towers (TF32 off) 1e-4, 30 times a few f32 roundings
+    record["bf16"] = p11_compare("bf16", ranks, ref, steps, n_b, names,
+                                 KERNEL_TOL / 2, probes["bf16"], dp_out,
+                                 P11_GRAD_TOL["bf16"])
+    record["f32"] = p11_compare("f32", ranks, ref32, steps, n_b, names,
+                                1e-4, probes["f32"], dp_out,
+                                P11_GRAD_TOL["f32"])
+    del probes
+    torch.cuda.empty_cache()
+    log(f"parallel: two gloo processes on one card, {record['two_process_s']:.1f}"
+        f" s for both variants and the mesh steps ok")
+    # the compared vectors stay out of the record
+    for runs in [ref, nccl, ref32] + [r[v] for r in ranks
+                                     for v in ("bf16", "f32")]:
+        for run in runs.values():
+            run.pop("ap", None)
+            run.pop("mat_digest", None)
+
+    # (c): the (2, 1) and (1, 2) steps against one process's on the whole
+    # batch; the language-aware term on, which data rank 0 alone adds
+    one_loss, one_counts, one_rows, one_grads, one_norms = p11_step(
+        None, args.seed, wrappers)
+    record["one_step_launches"] = one_counts
+    dp, tp = ([r[k] for r in ranks] for k in ("dp", "tp"))
+    k3 = names.index("cache_logits_fwd")
+    for what, runs, rows in (("(2, 1)", dp, 234), ("(1, 2)", tp, 117),
+                             ("one process", [{"launches": one_counts,
+                                               "h_rows": one_rows}], 234)):
+        for r in runs:
+            if r["h_rows"] != rows or r["launches"] != P11_STEP_LAUNCHES:
+                fail(f"phase 11c: a {what} rank holds {r['h_rows']} rows "
+                     f"and launched {r['launches']}, expected {rows} and "
+                     f"{P11_STEP_LAUNCHES}")
+    grads = {}
+    for k in ("dp", "tp"):
+        for r in range(2):
+            with np.load(os.path.join(dp_out, f"grads_{k}_rank{r}.npz")) \
+                    as z:
+                grads[k, r] = {n: z[n] for n in z.files}
+    diffs = {"dp_ranks": grads_rel_diff(grads["dp", 1], grads["dp", 0]),
+             "tp_ranks": grads_rel_diff(grads["tp", 1], grads["tp", 0]),
+             "dp_one": grads_rel_diff(grads["dp", 0], one_grads),
+             "tp_dp": grads_rel_diff(grads["tp", 0], grads["dp", 0])}
+    losses = {"dp": [d["loss"] for d in dp], "tp": [t["loss"] for t in tp],
+              "one": one_loss}
+    norm_diff = max(norms_rel_diff(r["norms"], one_norms) for r in dp + tp)
+    loss_diff = max(abs(t - one_loss) for t in losses["dp"] + losses["tp"])
+    log(f"parallel: one training step with the language-aware term on, "
+        f"losses (2, 1) {losses['dp']}, (1, 2) {losses['tp']}, one process "
+        f"{one_loss} (within {loss_diff:.3e}); K3 launched "
+        f"{tp[0]['launches'][k3]} times a (1, 2) rank on its 117 of the 234 "
+        f"cache rows; the groups' norms before the clip {one_norms} (one "
+        f"process), every rank's within {norm_diff:.3e} relative; clipped "
+        f"gradients, the largest difference relative to its leaf's scale: "
+        + "; ".join(f"{k} {v:.3e} ({leaf})" for k, (v, leaf) in diffs.items()))
+    if diffs["dp_ranks"][0] or diffs["tp_ranks"][0]:
+        fail("phase 11c: the ranks of one mesh hold different gradients")
+    if not loss_diff < 1e-4 or not max(
+            diffs["dp_one"][0], diffs["tp_dp"][0], norm_diff) <= \
+            P11_GRAD_TOL["step"]:
+        fail("phase 11c: the mesh steps differ from one process's")
+    record.update(tp_loss=tp[0]["loss"], dp_loss=dp[0]["loss"],
+                  one_loss=one_loss, step_loss_diff=loss_diff,
+                  step_norms=one_norms, step_norm_rel_diff=norm_diff,
+                  step_grad_rel_diff={k: v for k, (v, _) in diffs.items()})
+    record["seconds"] = time.perf_counter() - t11
+    log(f"phase 11 took {record['seconds']:.1f} s")
+    return record
+
+
+# ---------------------------------------------------------- the remainder
+# OpenAI's RN101 (ModifiedResNet (3, 4, 23, 3) of width 64, 224 pixels, a
+# 512-wide output): the generator's VAE takes 512-wide features (FEAT in
+# both packages), which RN50's 1024-wide output is not
+def rn101_config():
+    import dataclasses as dc
+
+    from hoigen_tpu_torch.tools.make_checkpoints import RN50
+    return dc.replace(RN50, embed_dim=512, vision_layers=33,
+                      rn_layers=(3, 4, 23, 3))
+
+
+def listing_lines(text):
+    return [line for line in text.splitlines()
+            if line.startswith(("=> Action", "(", "saved "))]
+
+
+def run_inference(inference, argv, device=None):
+    """``inference.main(argv)`` with its stdout kept and its eval step
+    timed. -> (listing lines, seconds, step seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hoigen_tpu_torch.engine import hoi_model as hm
+    make = hm.make_eval_step
+    step_s = []
+
+    def timed_make(cfg, device=None):
+        step = make(cfg, device)
+
+        def run(*a):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        return run
+    buf = io.StringIO()
+    hm.make_eval_step = timed_make
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            inference.main(argv, device=device)
+        seconds = time.perf_counter() - t0
+    finally:
+        hm.make_eval_step = make
+    return listing_lines(buf.getvalue()), seconds, step_s[0]
+
+
+def small_inference_config(cfg, device=None):
+    """The inference CLI's small float32 configuration: the port's CPU
+    tests' tiny model, every kernel gate closed."""
+    from hoigen_tpu_torch.engine import hoi_model as hm
+    from hoigen_tpu_torch.models.clip.config import CLIPConfig
+    from hoigen_tpu_torch.models.detr.config import DETRConfig
+    from hoigen_tpu_torch.models.proposals import ProposalConfig
+    from hoigen_tpu_torch.models.upt import UPTConfig
+    return hm.HOIModelConfig(
+        clip=CLIPConfig(image_resolution=32, vision_layers=2,
+                        vision_width=64, vision_patch_size=8,
+                        transformer_layers=2, transformer_width=64,
+                        adapter_layers=(0, 1), fused_attention=False),
+        detr=DETRConfig(hidden_dim=64, nheads=2, enc_layers=2, dec_layers=2,
+                        dim_feedforward=128, num_queries=12,
+                        num_classes=81),
+        upt=UPTConfig(num_classes=cfg.num_classes, num_shot=2,
+                      clip_resolution=32, use_dino=False,
+                      cache_model=cfg.cache_model,
+                      proposals=ProposalConfig(max_instances=4),
+                      max_gt_pairs=cfg.max_gt_pairs,
+                      generate_feature=False))
+
+
+def small_inference_card_and_cpu(work, data, seed):
+    """The inference CLI at the small configuration on the card and on the
+    CPU, from the same files, on the first image of phase 7's tree whose
+    listing holds a pair: the listings line for line. -> record."""
+    import functools
+
+    from hoigen_tpu_torch.cli import inference
+    from hoigen_tpu_torch.cli import main_finetune as mf
+    from hoigen_tpu_torch.data import factory as factory_module
+    from hoigen_tpu_torch.tools.make_checkpoints import write_checkpoints
+    from hoigen_tpu_torch.utils.config import RunConfig
+
+    small = small_inference_config(RunConfig())
+    paths = write_checkpoints(os.path.join(work, "small_files"), small.clip,
+                              small.detr, seed=seed, dino=False,
+                              spread=100.0,
+                              image_names=[f"HICO_train2015_{i:08d}.jpg"
+                                           for i in range(len(EVAL_SIZES))])
+    saved = (mf.make_model_config, factory_module.DataFactory,
+             factory_module.DEFAULT_BUCKETS)
+    mf.make_model_config = small_inference_config
+    factory_module.DataFactory = functools.partial(
+        saved[1], clip_resolution=32, transform_kwargs=SMALL_TRANSFORM)
+    factory_module.DEFAULT_BUCKETS = SMALL_BUCKETS
+    try:
+        for index in range(len(EVAL_SIZES)):
+            argv = ["--data-root", data, "--num-classes", "117",
+                    "--dino", "false", "--generate-feature", "false",
+                    "--clip-model-path", paths["clip"],
+                    "--pretrained-detr", paths["detr"], "--file1",
+                    paths["pairs"], "--index", str(index),
+                    "--action-score-thresh", "0.0"]
+            cpu = run_inference(inference, argv + [
+                "--output-dir", os.path.join(work, "small_cpu")], "cpu")[0]
+            if any(line.startswith("(") for line in cpu):
+                break
+        else:
+            fail("inference small: no image of the tree gives a pair")
+        card = run_inference(inference, argv + [
+            "--output-dir", os.path.join(work, "small_cuda")], "cuda")[0]
+    finally:
+        (mf.make_model_config, factory_module.DataFactory,
+         factory_module.DEFAULT_BUCKETS) = saved
+    cpu = [line.replace("small_cpu", "<out>") for line in cpu]
+    card = [line.replace("small_cuda", "<out>") for line in card]
+    if card != cpu:
+        fail("inference small: the listings differ between card and CPU:\n"
+             + "\n".join(card[:10]) + "\n---\n" + "\n".join(cpu[:10]))
+    n = sum(line.startswith("(") for line in card)
+    log(f"remainder: inference at the small configuration, image {index}: "
+        f"{len(card)} listing lines ({n} pairs) equal on card and CPU ok")
+    return {"index": index, "lines": len(card), "pairs": n}
+
+
+def rn_encodes(gen_work, gen_ctx, seed):
+    """``prepare_data gt-features`` of one family with an RN50 CLIP file and
+    ``main_vae`` of that family with an RN101 one, both written from
+    ``seed``: no kernel launch, finite features and losses, the frozen
+    CLIP bit-identical. -> record."""
+    import pickle
+
+    import torch
+
+    from hoigen_tpu_torch.cli import main_vae, prepare_data
+    from hoigen_tpu_torch.engine.partition import named_leaves
+    from hoigen_tpu_torch.models import generator as G
+    from hoigen_tpu_torch.tools.make_checkpoints import RN50, \
+        clip_state_dict
+
+    fam = GEN_FAMILIES[0]
+    split, n = gen_ctx["splits"][fam]
+    rec = {"family": fam, "crops": n}
+    cwd = os.getcwd()
+    try:
+        os.chdir(gen_work)
+        files = {}
+        for name, cfg in (("rn50", RN50), ("rn101", rn101_config())):
+            files[name] = os.path.join(gen_work, f"{name}.pt")
+            torch.save(clip_state_dict(cfg, seed), files[name])
+        out = os.path.join(gen_work, "gt_rn50.pickle")
+        with FunctionTimes(prepare_data, ("produce_gt_features",)) as pt:
+            _, sec, counts = counted_run(prepare_data.main, [
+                "gt-features", "--split-json", split, "--clip-model",
+                files["rn50"], "--out", out])
+        expect_launches("gt-features RN50", counts, 0)
+        with open(out, "rb") as f:
+            feats = [v[0] for v in pickle.load(f).values() if v]
+        if sum(len(v) for v in feats) != n or not all(
+                torch.isfinite(torch.as_tensor(v)).all() and
+                v.shape[1] == RN50.embed_dim for v in feats):
+            fail(f"gt-features RN50: {sum(map(len, feats))} of {n}")
+        loop_s = pt.s["produce_gt_features"]
+        rec.update(gt_features_s=sec, producer_s=loop_s,
+                   rn50_crops_per_s=n / loop_s)
+        log(f"remainder: gt-features {fam} with RN50: {n} crops, "
+            f"{RN50.embed_dim}-wide features, in {loop_s:.2f} s, "
+            f"{n / loop_s:.0f} crops/s (host crops, RN50 at batch 64); "
+            f"launches {counts}")
+
+        snapshots = []
+
+        def keep_clip(a, out):
+            snapshots.append((out[0], {p: t.clone() for p, t in
+                                       named_leaves(out[0])}))
+        with Recorded(main_vae, "load_clip", keep_clip), \
+                Recorded(G, "vae_step", lambda a, out: out.detach()) \
+                as losses, \
+                FunctionTimes(main_vae, ("encode_image",)) as vt:
+            _, sec, counts = counted_run(main_vae.main, [
+                "--data", f"{fam}_data", "--split-json", split,
+                "--clip-model", files["rn101"], "--ckpt-dir", "ckpt_rn",
+                "--epochs", "1", "--batch-size", str(GEN_BATCH),
+                "--seed", str(seed)])
+        expect_launches("main_vae RN101", counts, 0)
+        vl = [float(x) for x in losses.calls]
+        steps = n // GEN_BATCH
+        if len(vl) != steps or not all(map(math.isfinite, vl)):
+            fail(f"main_vae RN101: losses {vl} over {steps} steps")
+        n_frozen = frozen_clip_check("main_vae RN101", snapshots)
+        rec.update(main_vae_s=sec, steps=steps, losses=vl,
+                   rn101_crops_per_s=steps * GEN_BATCH / vt.s["encode_image"],
+                   frozen_tensors=n_frozen)
+        log(f"remainder: main_vae {fam} with RN101: {steps} steps at batch "
+            f"{GEN_BATCH}, losses {', '.join(f'{x:.5f}' for x in vl)}, "
+            f"encodes {steps * GEN_BATCH / vt.s['encode_image']:.0f} "
+            f"crops/s; {n_frozen} CLIP tensors bit-identical; launches "
+            f"{counts}")
+    finally:
+        os.chdir(cwd)
+    return rec
+
+
+def small_rn_card_and_cpu(seed):
+    """A small RN tower's encode on the card against the CPU's, from the
+    same converted file: within 2e-4 of the features' scale."""
+    import dataclasses as dc
+
+    import torch
+
+    from hoigen_tpu_torch.models.clip.convert import \
+        torch_state_dict_to_params
+    from hoigen_tpu_torch.models.clip.model import encode_image
+    from hoigen_tpu_torch.tools.make_checkpoints import RN50, \
+        clip_state_dict
+    from hoigen_tpu_torch.engine.hoi_model import to_device
+    cfg = dc.replace(RN50, rn_layers=(1, 1, 1, 1), vision_width=16,
+                     vision_layers=4, embed_dim=64, image_resolution=64,
+                     transformer_layers=1)
+    params, cfg = torch_state_dict_to_params(clip_state_dict(cfg, seed))
+    x = torch.randn((4, 3, 64, 64), generator=torch.Generator()
+                    .manual_seed(seed))
+    with torch.no_grad():
+        want = encode_image(params, x, cfg)
+        got = encode_image(to_device(params, "cuda"), x.cuda(), cfg)
+    err = max(float((g.cpu() - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    if not err <= 2e-4:
+        fail(f"RN small: card against CPU {err:.3e}")
+    log(f"remainder: a small RN tower's features on the card within "
+        f"{err:.3e} of the CPU's (relative to their scale) ok")
+    return err
+
+
+def head_and_masks_card_and_cpu(seed):
+    """The legacy interaction head at full width (hidden 256,
+    representation 512, 117 classes, 15 + 15 slots) and generate_masks
+    (30 boxes at 800 x 1344), card against CPU. -> (head error, mask
+    seconds)."""
+    import torch
+
+    from hoigen_tpu_torch.engine.hoi_model import full_f32, to_device
+    from hoigen_tpu_torch.models.interaction_head import \
+        InteractionHeadConfig, init_interaction_head, \
+        interaction_head_forward
+    from hoigen_tpu_torch.ops.masks import generate_masks
+    gen = torch.Generator().manual_seed(seed)
+    cfg = InteractionHeadConfig()
+    params = init_interaction_head(gen, cfg)
+    b, s = 2, cfg.proposals.n_slots
+    xy = torch.rand((b, s, 2), generator=gen) * 500
+    boxes = torch.cat([xy, xy + 20 + torch.rand((b, s, 2), generator=gen)
+                       * 300], -1)
+    valid = torch.rand((b, s), generator=gen) < 0.8
+    ins = (torch.randn((b, cfg.num_channels), generator=gen),
+           torch.randn((b, s, cfg.hidden_state_size), generator=gen), boxes,
+           torch.rand((b, s), generator=gen),
+           torch.randint(0, 80, (b, s), generator=gen), valid,
+           torch.tensor([[800.0, 1344.0], [800.0, 1200.0]]),
+           (torch.rand((80, 117), generator=gen) < 0.1).float())
+    with torch.no_grad(), full_f32():
+        want = interaction_head_forward(params, *ins, cfg, training=False)
+        got = interaction_head_forward(to_device(params, "cuda"),
+                                       *(t.cuda() for t in ins), cfg,
+                                       training=False)
+    err = float((got[0].cpu() - want[0]).abs().max()
+                / want[0].abs().max())
+    if not err <= 2e-4 or not torch.equal(got[2].cpu(), want[2]) or \
+            not torch.allclose(got[1].cpu(), want[1], rtol=1e-6, atol=1e-6):
+        fail(f"interaction head: card against CPU {err:.3e}")
+    mboxes = torch.cat([xy[0], xy[0] + 0.5 + torch.rand(
+        (s, 2), generator=gen) * 400], -1)
+    m_cpu = generate_masks(mboxes, 800, 1344)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_card = generate_masks(mboxes.cuda(), 800, 1344)
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    if not torch.equal(m_card.cpu(), m_cpu):
+        fail("generate_masks: card and CPU differ")
+    log(f"remainder: the interaction head at full width ({b} images, "
+        f"{cfg.proposals.n_pairs} pairs, 117 classes) on the card within "
+        f"{err:.3e} of the CPU's logits, priors and pair_valid equal; "
+        f"generate_masks of {s} boxes at 800 x 1344 bit for bit ok")
+    return err, mask_s
+
+
+def profiling_check(model, cfg, batch, eval_images_per_s):
+    """``engine/profiling.py`` on phase 5's eval step: a trace of five
+    steps written as a Chrome trace, StepTimer's images/s over the same
+    steps beside phase 5's, and the card's peak allocation. -> record."""
+    import tempfile
+
+    from hoigen_tpu_torch.engine.hoi_model import make_eval_step
+    from hoigen_tpu_torch.engine.profiling import StepTimer, \
+        device_memory_stats, trace
+    step = make_eval_step(cfg)
+    timer = StepTimer()
+    logdir = tempfile.mkdtemp(prefix="trace_")
+    with trace(logdir):
+        for _ in range(5):
+            timer.timed(step, *model, batch,
+                        fetch=lambda o: o["detection_scores"])
+    path = os.path.join(logdir, "trace.json")
+    size = os.path.getsize(path)
+    stats = device_memory_stats()
+    if not size or stats is None or \
+            "allocated_bytes.all.peak" not in stats:
+        fail(f"profiling: trace of {size} bytes, memory stats {stats}")
+    b = batch["images"].shape[0]
+    rec = {"trace_bytes": size, "timer_images_per_s":
+           timer.images_per_sec(b), "timer_mean_ms": timer.mean * 1e3,
+           "phase5_images_per_s": eval_images_per_s,
+           "peak_allocated_gib": stats["allocated_bytes.all.peak"] / 2 ** 30}
+    import shutil
+    shutil.rmtree(logdir, ignore_errors=True)
+    log(f"remainder: profiling: a trace of 5 eval steps, {size} bytes; "
+        f"StepTimer {rec['timer_images_per_s']:.2f} images/s under the "
+        f"profiler (phase 5: {eval_images_per_s:.2f}); peak allocation "
+        f"{rec['peak_allocated_gib']:.2f} GiB ok")
+    return rec
+
+
+def remainder_phase(args, card, cli_ctx, gen_work, gen_ctx, profiling):
+    """Phase 12: the inference CLI at full width from phase 8's files and
+    checkpoint on phase 7's tree (default, --action K and --action K
+    --failure, each with the counters set to 0), and at the small
+    configuration on the card and on the CPU; RN CLIP files through
+    ``prepare_data`` and ``main_vae``; the legacy interaction head and the
+    box masks card against CPU; ``profiling`` (phase 5's, measured while
+    its model was alive). Returns the ``remainder_run`` record."""
+    import torch
+
+    from hoigen_tpu_torch.cli import inference
+    t12 = time.perf_counter()
+    names, _ = kernel_wrappers()
+    record = {"card": card, "profiling": profiling}
+    work = os.path.dirname(cli_ctx["out"])
+    vis = os.path.join(work, "vis")
+    argv = cli_ctx["argv"] + ["--resume", cli_ctx["out"], "--output-dir",
+                              vis, "--index", "0"]
+    runs = record["inference"] = {}
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        # the default listing of every scored pair; then the first listed
+        # action's pairs at or above, and below, its first pair's score
+        k, thresh = None, "0.0"
+        for mode in ("default", "action", "failure"):
+            extra = ["--action-score-thresh", thresh] + ([] if mode ==
+                                                         "default" else (
+                ["--action", str(k)] + (["--failure"] if mode == "failure"
+                                        else [])))
+            (lines, seconds, step_s), _, counts = counted_run(
+                run_inference, inference, argv + extra)
+            if counts != dict(zip(names, (6, 0, 1, 3))):
+                fail(f"inference {mode}: launches {counts}")
+            if mode == "default":
+                first = next((i for i, line in enumerate(lines)
+                              if line.startswith("=> Action")), None)
+                if first is None:
+                    fail("inference: no pair was listed")
+                from hoigen_tpu_torch.labels import HICO
+                k = HICO.verbs_sentence.index(lines[first].split(": ", 1)[1])
+                thresh = lines[first + 1].split("score: ")[1].split(",")[0]
+                files = ["vis_000000.png", "vis_000000_boxes.png"]
+            else:
+                files = [f"vis_000000_action_{k:03d}"
+                         f"{'_failure' if mode == 'failure' else ''}.png"]
+            for f in files:
+                if not os.path.getsize(os.path.join(vis, f)):
+                    fail(f"inference {mode}: {f} is empty")
+            runs[mode] = {"seconds": seconds, "step_ms": step_s * 1e3,
+                          "launches": counts, "lines": len(lines),
+                          "pairs": sum(x.startswith("(") for x in lines),
+                          "files": files, "saved": lines[-1]}
+            log(f"remainder: inference {mode}: main in {seconds:.2f} s, the "
+                f"one-image eval step {step_s * 1e3:.2f} ms; launches "
+                f"{counts}; {len(lines)} listing lines, the last: "
+                f"{lines[-1]}")
+            torch.cuda.empty_cache()
+        record["inference_small"] = small_inference_card_and_cpu(
+            work, cli_ctx["data"], args.seed)
+    finally:
+        os.chdir(cwd)
+    record["rn"] = rn_encodes(gen_work, gen_ctx, args.seed)
+    record["rn_small_err"] = small_rn_card_and_cpu(args.seed)
+    record["head_err"], record["masks_s"] = \
+        head_and_masks_card_and_cpu(args.seed)
+    record["seconds"] = time.perf_counter() - t12
+    log(f"phase 12 took {record['seconds']:.1f} s")
     return record
 
 
@@ -2528,15 +3736,30 @@ def main():
 
     # phase 7: the HICO-DET evaluation from disk
     eval_run = eval_from_disk_phase(model, cfg, args, card)
+    # phase 12's profiling check, on phase 5's eval step while it is here
+    profiling = profiling_check(model, cfg, batch, images_per_s)
 
     # phase 8: the CLI end to end
     del model, train_model, trainer
     torch.cuda.empty_cache()
-    cli = cli_phase(args, card)
-
-    # phase 9: the generator pipeline; phase 10: the DETR offline finetune
-    generator_run = generator_phase(args, card)
-    detr_run = detr_finetune_phase(args, card)
+    import shutil
+    import tempfile
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cli_ctx, gen_ctx = {}, {}
+        cli = cli_phase(args, card, os.path.join(scratch, "cli"), cli_ctx)
+        # phase 9: the generator pipeline; phase 10: the DETR offline
+        # finetune
+        gen_work = os.path.join(scratch, "generator")
+        generator_run = generator_phase(args, card, gen_work, gen_ctx)
+        detr_run = detr_finetune_phase(args, card)
+        # phase 11: parallelism on one card; phase 12: the remainder
+        parallel_run = parallel_phase(
+            args, card, os.path.join(scratch, "parallel"), cli_ctx)
+        remainder_run = remainder_phase(args, card, cli_ctx, gen_work,
+                                        gen_ctx, profiling)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     # K1's launches in phase 9's runs, on the record of their batch: the
     # VAE encodes 256 crops, prepare_data's clip_apply up to 64 (a last
     # batch holds the rest), the crop encoder 32
@@ -2551,6 +3774,42 @@ def main():
                     for name, prefixes in gen_shapes.items()}
     for name, by_run in gen_launches.items():
         launches[name] = sum(by_run.values())
+    # phase 12's one-image steps and phase 11's runs, on the records of
+    # their shapes: the inference CLI at batch 1 (117 classes); each gloo
+    # rank's runs and (2, 1) step at batch 2: the DETR's K1 (bf16) and K2,
+    # the CLIP tower's K1 and K4 (a training run launches them in pairs;
+    # its other K1 are the DETR's), K3 over all rows; the (1, 2) step's
+    # K3 on half the rows, its K1 and K4 at batch 4 as phase 6's, as the
+    # one-process step of phase 11c
+    inf_runs = remainder_run["inference"].values()
+    ranks = parallel_run["two_processes"]
+    k1, k4, k2, k3 = range(4)
+    modes = ("train", "eval", "cache")
+    cli_b2 = [r[v][m]["launches"] for r in ranks for v in ("bf16", "f32")
+              for m in modes]
+    train_b2 = [r[v]["train"]["launches"] for r in ranks
+                for v in ("bf16", "f32")]
+    dp_b2 = [r["dp"]["launches"] for r in ranks]
+    tp = [r["tp"]["launches"] for r in ranks] + \
+        [parallel_run["one_step_launches"]]
+    launches.update({
+        "attention_fwd_b1": sum(r["launches"]["attention_fwd"]
+                                for r in inf_runs),
+        "bottleneck_chain_fwd_b1": sum(
+            r["launches"]["bottleneck_chain_fwd"] for r in inf_runs),
+        "cache_logits_fwd_b1_c117": sum(r["launches"]["cache_logits_fwd"]
+                                        for r in inf_runs),
+        "attention_fwd_b2": sum(c[k1] for c in cli_b2)
+        - sum(c[k4] for c in train_b2),
+        "bottleneck_chain_fwd_b2": sum(c[k2] for c in cli_b2),
+        "attention_fwd_clip_f32_b2": sum(c[k4] for c in train_b2)
+        + sum(c[k1] for c in dp_b2),
+        "attention_bwd_b2": sum(c[k4] for c in train_b2 + dp_b2),
+        "cache_logits_fwd_b2_c117": sum(c[k3] for c in cli_b2 + dp_b2),
+        "cache_logits_fwd_half_rows_c117": sum(c[k3] for c in tp[:2])})
+    launches["attention_fwd_clip_f32"] += sum(c[k1] for c in tp)
+    launches["attention_bwd"] += sum(c[k4] for c in tp)
+    launches["cache_logits_fwd_c117"] += tp[2][k3]
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for rec in records:
@@ -2581,7 +3840,8 @@ def main():
                            "first_loss": losses[0], "last_loss": losses[-1],
                            "card": card},
             "eval_run": eval_run, "cli_run": cli,
-            "generator_run": generator_run, "detr_finetune_run": detr_run}
+            "generator_run": generator_run, "detr_finetune_run": detr_run,
+            "parallel_run": parallel_run, "remainder_run": remainder_run}
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

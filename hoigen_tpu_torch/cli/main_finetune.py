@@ -20,15 +20,20 @@ Differences from the JAX CLI:
 - A generator checkpoint that is missing is drawn from a generator seeded
   with ``--seed`` and the family's index (the JAX CLI salts it with
   Python's per-process ``hash``).
-- One process on one device: a data-parallel run (``--devices`` above 1,
-  or several processes) raises ``NotImplementedError`` (``ROADMAP.md``
-  queue A, "Parallel").
+- Data parallelism is one process per card, as in the reference: set
+  ``COORDINATOR_ADDRESS`` (host:port), ``NUM_PROCESSES`` and
+  ``PROCESS_ID`` in each process (the JAX CLI's three variables), or
+  give ``--devices N`` to one process, which starts N processes of one
+  card each (``parallel/distributed.py::launch``); the JAX CLI puts N
+  local devices in one process instead. NCCL joins processes on CUDA,
+  gloo on the CPU. Process 0 alone writes files and prints.
 
 :func:`batches_from_factory` and :func:`eval_batches` are the input and
 evaluation loops; :func:`main` runs from a :class:`RunConfig`
 (``parse_config``). ``main`` runs on CUDA unless it is given
 ``device="cpu"``.
 """
+import contextlib
 import os
 import random
 
@@ -55,6 +60,9 @@ from ..models.convert_upt import load_torch_file
 from ..models.detr.config import DETRConfig
 from ..models.proposals import ProposalConfig
 from ..models.upt import UPTConfig, apply_vis_tor
+from ..parallel import gather_pyobj, global_mesh, init_distributed, \
+    launch, local_batch_indices, local_n_real, process_allgather_ragged, \
+    process_count, process_index
 from ..utils.config import RunConfig, parse_config
 
 
@@ -371,14 +379,8 @@ def make_model_config(cfg: RunConfig, device=None) -> HOIModelConfig:
         dtype=cfg.dtype)
 
 
-def _multi_process():
-    return (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1)
-
-
-def batches_from_factory(factory, batch_size, cfg: RunConfig, mesh=None,
-                         shuffle=True, seed=0, pad_tail=False):
+def batches_from_factory(factory, batch_size, cfg: RunConfig, shuffle=True,
+                         seed=0, pad_tail=False):
     """Yield (feed dict of numpy arrays, Batch) through the threaded input
     pipeline (``data/loader.py``). With ``pad_tail`` the final short batch
     is padded to ``batch_size`` by repeating its last sample, and
@@ -386,12 +388,13 @@ def batches_from_factory(factory, batch_size, cfg: RunConfig, mesh=None,
     the eval and training steps move it to the card, so no worker thread
     touches CUDA.
 
-    Data-parallel input (a ``mesh``, or more than one process) is not
-    ported yet and raises (``ROADMAP.md`` queue A, "Parallel")."""
-    if mesh is not None or _multi_process():
-        raise NotImplementedError(
-            "batches_from_factory: data-parallel input (a mesh, or more than "
-            "one process) is not ported yet: ROADMAP.md queue A, 'Parallel'")
+    With several processes ``batch_size`` is the global batch: every
+    process walks the same global stream and loads only its rows
+    (``parallel/distributed.py::local_batch_indices``), padded to the
+    global batch's image shape (``factory.padded_hw`` replays each row's
+    transform from its size alone), so that the rows equal the
+    single-process batch's; ``n_real`` counts this process's real rows."""
+    multi = process_count() > 1
 
     def collate(samples, pad_hw=None):
         batch = collate_batch(samples, cfg.max_gt_pairs, pad_hw=pad_hw)
@@ -408,12 +411,19 @@ def batches_from_factory(factory, batch_size, cfg: RunConfig, mesh=None,
             d["images_clip"] = batch.images_clip
         return d, batch
 
-    idx_batches = batch_indices(len(factory), batch_size, shuffle, seed,
-                                pad_tail=pad_tail)
+    if multi:
+        idx_batches = [
+            (lidx, n_real, {"pad_hw": factory.padded_hw(gidx)})
+            for gidx, lidx, n_real in local_batch_indices(
+                len(factory), batch_size, shuffle, seed, pad_tail=pad_tail,
+                return_global=True)]
+    else:
+        idx_batches = batch_indices(len(factory), batch_size, shuffle, seed,
+                                    pad_tail=pad_tail)
     for (d, batch), n_real in iter_batches(
             factory.__getitem__, idx_batches, collate,
             num_workers=cfg.num_workers):
-        batch.n_real = n_real
+        batch.n_real = local_n_real(n_real, batch_size) if multi else n_real
         yield d, batch
 
 
@@ -464,17 +474,45 @@ def _import_reference(cfg, params, buffers, pair, dev):
 def main(cfg: RunConfig, device=None):
     """Train (returns the Trainer), evaluate (returns the HICO-DET result
     dict or the V-COCO report) or cache (returns None) as ``cfg`` says, on
-    ``device`` (None: CUDA; raises without a card)."""
+    ``device`` (None: CUDA; raises without a card).
+
+    A multi-process run joins its process group first (no-op unless
+    ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and ``PROCESS_ID`` are
+    set). Otherwise ``--devices N`` above 1 (None: every visible card; 1
+    on the CPU) starts N processes of one card each and returns process
+    0's result, a Trainer as a dict of its epoch, iteration and last
+    losses. Only process 0 prints."""
     dev = resolve_device(device)
-    if _multi_process() or (cfg.devices or 1) > 1:
-        raise NotImplementedError(
-            "main: data-parallel runs (--devices above 1, or several "
-            "processes) are not ported yet: ROADMAP.md queue A, 'Parallel'")
+    multi = init_distributed(device=dev)
+    if not multi:
+        n = cfg.devices if cfg.devices is not None else (
+            torch.cuda.device_count() if dev.type == "cuda" else 1)
+        if n > 1:
+            return launch(_main_in_process, n, cfg, device, device=dev)
+    if process_index() == 0:
+        return _main(cfg, dev, multi)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _main(cfg, dev, multi)
+
+
+def _main_in_process(cfg, device):
+    """One process of a ``--devices N`` run; a Trainer comes back as a
+    picklable summary."""
+    out = main(cfg, device)
+    if isinstance(out, Trainer):
+        return {"epoch": out.epoch, "iteration": out.iteration,
+                "losses": list(out._losses)}
+    return out
+
+
+def _main(cfg: RunConfig, dev, multi):
     np.random.seed(cfg.seed)
     gen = torch.Generator().manual_seed(cfg.seed)
     model_cfg = make_model_config(cfg, dev)
+    primary = process_index() == 0
     os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.output_dir, "args.json"))
+    if primary:
+        cfg.save(os.path.join(cfg.output_dir, "args.json"))
 
     if cfg.dataset == "hicodet":
         cfg.partitions = ["train2015", "test2015"]
@@ -588,22 +626,28 @@ def main(cfg: RunConfig, device=None):
     if cfg.eval or cfg.cache:
         runs = eval_batches(make_eval_step(model_cfg, dev), params, buffers,
                             test_factory, cfg)
+        # several processes score their rows and merge the ragged
+        # per-image results (process 0 writes the files)
+        gather = gather_pyobj if multi else None
         if cfg.cache:
             if cfg.dataset == "hicodet":
                 cache_hico(runs, test_factory.dataset,
                            model_cfg.upt.proposals,
                            HICO.object_n_verb_to_interaction,
                            HICO.object_to_interaction, cfg.num_classes,
-                           cfg.output_dir)
+                           cfg.output_dir, gather_fn=gather,
+                           is_primary=primary)
             else:
                 cache_vcoco(runs, test_factory.dataset,
-                            model_cfg.upt.proposals, cfg.output_dir)
+                            model_cfg.upt.proposals, cfg.output_dir,
+                            gather_fn=gather, is_primary=primary)
             return None
         if cfg.dataset == "vcoco":
             # beyond the reference, which defers to the official toolkit
             # (main_tip_finetune.py:912): the vsrl role AP in-repo
             report = evaluate_vcoco(runs, test_factory.dataset,
-                                    model_cfg.upt.proposals)
+                                    model_cfg.upt.proposals,
+                                    gather_fn=gather, is_primary=primary)
             for k in ("role_ap_scenario_1", "role_ap_scenario_2",
                       "agent_ap"):
                 print(f"{k}: mean AP {report[k]['mean'] * 100:.2f}")
@@ -612,6 +656,7 @@ def main(cfg: RunConfig, device=None):
             runs, test_factory.dataset, cfg.num_classes,
             model_cfg.upt.proposals, HICO.object_n_verb_to_interaction,
             zs_unseen=HICO.unseen_index[cfg.zs_type] if cfg.zs else None,
+            gather_fn=process_allgather_ragged if multi else None,
             ap_workers=cfg.num_workers,
             train_anno_interaction=train_factory.dataset.anno_interaction)
         print(f"The mAP is {result['mAP'] * 100:.2f}, "
@@ -624,13 +669,17 @@ def main(cfg: RunConfig, device=None):
         return result
 
     # training
+    # the data axis spans the processes (any process group, even of one)
+    mesh = global_mesh() if torch.distributed.is_initialized() else None
     steps_per_epoch = max(len(train_factory) // cfg.batch_size, 1)
     optimizer = make_optimizer(cfg.lr_vit, cfg.lr_head, cfg.weight_decay,
                                cfg.lr_drop * steps_per_epoch,
-                               cfg.clip_max_norm)(params)
-    trainer = Trainer(make_train_step(model_cfg, optimizer, dev), optimizer,
-                      params, buffers, print_interval=cfg.print_interval,
-                      output_dir=cfg.output_dir)
+                               cfg.clip_max_norm, mesh=mesh)(params)
+    trainer = Trainer(make_train_step(model_cfg, optimizer, dev, mesh=mesh),
+                      optimizer, params, buffers,
+                      print_interval=cfg.print_interval,
+                      output_dir=cfg.output_dir,
+                      data_rank=mesh.data_index if mesh else 0)
     if resume_path:
         trainer.restore(resume_path)
         print(f"[load] resumed full training state from {resume_path} "

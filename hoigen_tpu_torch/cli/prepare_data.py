@@ -58,7 +58,7 @@ def load_clip(path, device):
 def clip_apply_fn(clip_params, clip_cfg):
     """images (N, 3, r, r) numpy, any dtype -> (N, embed) float32 numpy:
     CLIP's global features, encoded on the params' device in full f32."""
-    dev = clip_params["visual"]["conv1_w"].device
+    dev = clip_params["logit_scale"].device
 
     def apply(images):
         x = torch.as_tensor(np.asarray(images)).to(dev).float()

@@ -193,7 +193,7 @@ def make_device_crop_encoder(clip_params, clip_cfg, resolution: int = 224,
     from ..models.clip.model import encode_image
     from ..ops.resize import crop_resize_square_pil_u8
 
-    dev = clip_params["visual"]["conv1_w"].device
+    dev = clip_params["logit_scale"].device
     mean = torch.as_tensor(CLIP_MEAN, device=dev).reshape(1, 3, 1, 1)
     std = torch.as_tensor(CLIP_STD, device=dev).reshape(1, 3, 1, 1)
 

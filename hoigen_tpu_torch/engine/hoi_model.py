@@ -26,6 +26,8 @@ from ..models.upt import UPTConfig, init_upt_params, language_aware_loss, \
     upt_forward
 from ..ops.pixels import device_normalize, pad_mask_from_sizes
 from ..ops.resize import batch_resize_normalize
+from ..parallel.distributed import all_reduce
+from ..parallel.mesh import is_cache_row_leaf
 from .partition import lr_group, mark_trainable, trainable_leaves
 
 
@@ -96,10 +98,11 @@ def _as_tensor(x, device):
 
 
 def _forward(params, buffers, batch, cfg: HOIModelConfig, training=False,
-             generator=None):
+             generator=None, mesh=None):
     """The JAX package's ``_forward``: detections (eval) or (loss, aux)
     (training). DETR and DINO run under no grad. ``generator``: dropout in
-    training (None runs none, as the JAX package's rng=None)."""
+    training (None runs none, as the JAX package's rng=None).
+    ``mesh``: where the cache rows are sharded, or None."""
     dtype = getattr(torch, cfg.dtype)
     clip_cfg = cfg.clip
     if clip_cfg.fused_attention and not training:
@@ -150,7 +153,7 @@ def _forward(params, buffers, batch, cfg: HOIModelConfig, training=False,
                        batch["clip_sizes"], clip_cfg, cfg.upt,
                        dino_apply=dino_apply, targets=targets,
                        training=training, generator=generator,
-                       gen_sample=gen_sample)
+                       gen_sample=gen_sample, mesh=mesh)
 
 
 class GroupedAdamW:
@@ -171,14 +174,23 @@ class GroupedAdamW:
     updated and decayed, a leaf that got no gradient as if its gradient
     were zero. The Adam update itself is ``torch.optim.AdamW``'s, the same
     formula as optax's (b1 0.9, b2 0.999, eps 1e-8) with another rounding
-    order."""
+    order.
+
+    ``mesh``: with a model axis above 1, the cache-row leaves hold this
+    rank's slice (``parallel/mesh.py::shard_cache_rows``), and a group's
+    norm adds their squared norms over the model group, so that every
+    rank clips by the unsharded norm."""
 
     def __init__(self, named_params, base_lr, group=lr_group,
                  weight_decay=1e-4, lr_drop_step: Optional[int] = None,
-                 max_norm=0.1):
+                 max_norm=0.1, mesh=None):
+        named_params = list(named_params)
         groups = {name: [] for name in base_lr}
         for path, t in named_params:
             groups[group(path)].append(t)
+        self.row_group = mesh.row_group if mesh is not None else None
+        self.sharded = {id(t) for path, t in named_params
+                        if is_cache_row_leaf(path)}
         self.base_lr = dict(base_lr)
         self.lr_drop_step = lr_drop_step
         self.max_norm = max_norm
@@ -196,15 +208,41 @@ class GroupedAdamW:
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=False)
 
-    @torch.no_grad()
-    def step(self):
+    def _fill_grads(self):
         for group in self.opt.param_groups:
             for t in group["params"]:
                 if t.grad is None:
                     t.grad = torch.zeros_like(t)
-            grads = [t.grad for t in group["params"]]
-            norm = torch.linalg.vector_norm(
+
+    @torch.no_grad()
+    def all_reduce_grads(self, group):
+        """SUM every gradient over ``group`` (the data axis), in one
+        flat buffer; a leaf that got none counts as zero."""
+        self._fill_grads()
+        grads = [t.grad for g in self.opt.param_groups for t in g["params"]]
+        flat = all_reduce(torch._utils._flatten_dense_tensors(grads), group)
+        for g, r in zip(grads, torch._utils._unflatten_dense_tensors(
+                flat, grads)):
+            g.copy_(r)
+
+    def _norm(self, params):
+        grads = [t.grad for t in params]
+        if self.row_group is None:
+            return torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        sharded = torch.as_tensor([id(t) in self.sharded for t in params],
+                                  device=sq.device)
+        rows = all_reduce(torch.where(sharded, sq, 0.0).sum(),
+                          self.row_group)
+        return torch.sqrt(torch.where(sharded, 0.0, sq).sum() + rows)
+
+    @torch.no_grad()
+    def step(self):
+        self._fill_grads()
+        for group in self.opt.param_groups:
+            grads = [t.grad for t in group["params"]]
+            norm = self._norm(group["params"])
             # no host synchronisation: the scale stays on the device
             torch._foreach_mul_(grads, torch.where(
                 norm < self.max_norm, 1.0, self.max_norm / norm))
@@ -221,48 +259,72 @@ class GroupedAdamW:
 
 
 def make_optimizer(lr_vit=1e-3, lr_head=1e-3, weight_decay=1e-4,
-                   lr_drop_step: Optional[int] = None, max_norm=0.1):
+                   lr_drop_step: Optional[int] = None, max_norm=0.1,
+                   mesh=None):
     """-> make(params) -> a :class:`GroupedAdamW` over the trainable leaves
     of ``params`` (AdamW with two LR groups, StepLR x0.1 at lr_drop_step,
-    gradient clip 0.1 per group)."""
+    gradient clip 0.1 per group; ``mesh`` as GroupedAdamW takes it)."""
     def make(params):
         return GroupedAdamW(trainable_leaves(params),
                             {"vit": lr_vit, "head": lr_head},
                             weight_decay=weight_decay,
-                            lr_drop_step=lr_drop_step, max_norm=max_norm)
+                            lr_drop_step=lr_drop_step, max_norm=max_norm,
+                            mesh=mesh)
     return make
 
 
-def train_loss(params, buffers, batch, cfg: HOIModelConfig, generator=None):
+def train_loss(params, buffers, batch, cfg: HOIModelConfig, generator=None,
+               mesh=None):
     """The training objective: the focal-loss sum over the positive count
     (global sums of the batch), plus the language-aware term when
     ``cfg.upt.LA``. -> (loss, aux). The batch's tensors must be on the
-    parameters' device."""
+    parameters' device.
+
+    ``mesh`` (``parallel/mesh.py``): the batch is this rank's rows of the
+    global batch. The positive count is summed over the data axis first,
+    so that the SUM of the ranks' losses, and of their gradients, is the
+    global batch's; the language-aware term, which depends on the
+    parameters alone, enters on data rank 0 only. aux's n_p is then the
+    global count."""
     _, aux = _forward(params, buffers, batch, cfg, training=True,
-                      generator=generator)
+                      generator=generator, mesh=mesh)
+    if mesh is not None and mesh.data_group is not None:
+        aux["n_p"] = all_reduce(aux["n_p"].detach().clone(),
+                                mesh.data_group)
     total = aux["loss_sum"] / torch.clamp(aux["n_p"], min=1.0)
-    if cfg.upt.LA:
+    if cfg.upt.LA and (mesh is None or mesh.data_index == 0):
         total = total + language_aware_loss(
             params["upt"], buffers["origin_text_embeddings"],
             cfg.upt.LA_weight)
     return total, aux
 
 
-def make_train_step(cfg: HOIModelConfig, optimizer, device=None):
+def make_train_step(cfg: HOIModelConfig, optimizer, device=None, mesh=None):
     """-> step(params, buffers, batch, generator=None) -> metrics {"loss",
     "n_p"} (device tensors: reading them waits for the card). One
     optimizer step of ``optimizer`` (from :func:`make_optimizer`) on the
-    parameters, in place."""
+    parameters, in place.
+
+    ``mesh``: a data-parallel step over its data axis (each rank's batch
+    its rows of the global batch; the gradients summed over the axis
+    after the backward, the loss reported the global one) with the cache
+    rows sharded over its model axis where it has one."""
     dev = resolve_device(device)
+    group = mesh.data_group if mesh is not None else None
 
     def step(params, buffers, batch, generator=None):
         batch = {k: _as_tensor(v, dev) for k, v in batch.items()}
         with full_f32():
             optimizer.zero_grad()
-            loss, aux = train_loss(params, buffers, batch, cfg, generator)
+            loss, aux = train_loss(params, buffers, batch, cfg, generator,
+                                   mesh)
             loss.backward()
+            loss = loss.detach()
+            if group is not None:
+                optimizer.all_reduce_grads(group)
+                loss = all_reduce(loss.clone(), group)
             optimizer.step()
-        return {"loss": loss.detach(), "n_p": aux["n_p"].detach()}
+        return {"loss": loss, "n_p": aux["n_p"].detach()}
 
     return step
 

@@ -8,6 +8,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import barrier, is_primary
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .partition import trainable_leaves
 
@@ -32,11 +33,14 @@ def load_trainable(params, path: str) -> None:
 class Trainer:
     """``train_step`` and ``optimizer`` as from
     ``engine.hoi_model.make_train_step`` and ``make_optimizer``; the step
-    updates ``params`` in place."""
+    updates ``params`` in place. ``data_rank``: this process's index on the
+    data axis of a data-parallel run, which seeds its dropout apart from
+    the other ranks'. In a multi-process run process 0 writes the
+    checkpoints and every process waits for it."""
 
     def __init__(self, train_step: Callable, optimizer, params, buffers,
                  print_interval: int = 500, output_dir: Optional[str] = None,
-                 checkpoint_every_epoch: bool = True):
+                 checkpoint_every_epoch: bool = True, data_rank: int = 0):
         self.step_fn = train_step
         self.optimizer = optimizer
         self.params = params
@@ -44,6 +48,7 @@ class Trainer:
         self.print_interval = print_interval
         self.output_dir = output_dir
         self.checkpoint_every_epoch = checkpoint_every_epoch
+        self.data_rank = data_rank
         self.iteration = 0
         self.epoch = 0
         self._t_data = deque(maxlen=print_interval)
@@ -71,9 +76,9 @@ class Trainer:
     def run_epoch(self, batches: Iterable,
                   seed: Optional[int] = None) -> float:
         """batches: iterable of batch dicts. ``seed``: dropout runs, from a
-        generator seeded by (seed, iteration) at each step, so that a
-        resumed run draws what an uninterrupted one would; None runs no
-        dropout. Returns the epoch's mean loss."""
+        generator seeded by (seed, iteration, data rank) at each step, so
+        that a resumed run draws what an uninterrupted one would; None runs
+        no dropout. Returns the epoch's mean loss."""
         self.epoch += 1
         gen = None
         if seed is not None:
@@ -85,7 +90,8 @@ class Trainer:
             t0 = time.perf_counter()
             self._t_data.append(t0 - last)
             if gen is not None:
-                gen.manual_seed(seed * 1_000_003 + self.iteration)
+                gen.manual_seed(seed * 1_000_003 + self.iteration
+                                + (self.data_rank << 40))
             metrics = self.step_fn(self.params, self.buffers, batch, gen)
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
@@ -104,5 +110,8 @@ class Trainer:
                       f"[{np.sum(self._t_data):.2f}s/"
                       f"{np.sum(self._t_iter):.2f}s]")
         if self.checkpoint_every_epoch and self.output_dir:
-            save_checkpoint(self.output_dir, self.iteration, self.state())
+            if is_primary():
+                save_checkpoint(self.output_dir, self.iteration,
+                                self.state())
+            barrier()
         return epoch_loss / max(n, 1)

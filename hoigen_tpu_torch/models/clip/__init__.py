@@ -1,2 +1,3 @@
-"""Adapter-CLIP: the ViT image tower, the text tower, the BPE tokenizer
-and the checkpoint converter (port of hoigen_tpu.models.clip)."""
+"""Adapter-CLIP: the ViT and ModifiedResNet image towers, the text tower,
+the BPE tokenizer and the checkpoint converter (port of
+hoigen_tpu.models.clip)."""

@@ -1,8 +1,8 @@
-"""CLIP configuration: the ViT image tower's and the text tower's fields
-of ``hoigen_tpu/models/clip/config.py``, with its defaults (the
-ModifiedResNet tower is not part of the port yet)."""
+"""CLIP configuration (port of ``hoigen_tpu/models/clip/config.py``, with
+its defaults): the ViT or ModifiedResNet image tower and the text
+tower."""
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -12,6 +12,11 @@ class CLIPConfig:
     vision_layers: int = 12
     vision_width: int = 768
     vision_patch_size: int = 16
+    # ModifiedResNet image tower: block counts of its four stages; None is
+    # the ViT. For an RN tower vision_width is the stem width (64 for
+    # RN50) and vision_patch_size is 32 (the tower's total stride), so
+    # that grid_size holds
+    rn_layers: Optional[Tuple[int, int, int, int]] = None
     # the causal text transformer (class-text encodes, feature synthesis)
     context_length: int = 77
     vocab_size: int = 49408
@@ -32,7 +37,14 @@ class CLIPConfig:
     fused_attention: bool = True
 
     @property
+    def is_resnet(self) -> bool:
+        return self.rn_layers is not None
+
+    @property
     def vision_heads(self) -> int:
+        # RN: the attention pool's heads over its embed dim, width * 32
+        if self.is_resnet:
+            return self.vision_width * 32 // 64
         return self.vision_width // 64
 
     @property

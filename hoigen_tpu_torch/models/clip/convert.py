@@ -1,5 +1,6 @@
-"""A (Py)Torch CLIP state dict -> the port's CLIP parameters (port of the
-ViT branch of ``hoigen_tpu/models/clip/convert.py``).
+"""A (Py)Torch CLIP state dict -> the port's CLIP parameters (port of
+``hoigen_tpu/models/clip/convert.py``): ViT and ModifiedResNet (RN)
+checkpoints.
 
 Takes raw OpenAI CLIP checkpoints (state dicts of tensors or numpy arrays)
 and full reference-model state dicts that carry instance-adapter weights
@@ -9,14 +10,16 @@ interpolation applied on load when the target resolution differs
 build_model (:934-957). Values pass through numpy in float32, as in the
 JAX converter, so a leaf read from the file is the JAX one bit for bit. An
 adapter missing from the file is drawn from a ``torch.Generator`` (the JAX
-converter draws it from ``jax.random``). The ModifiedResNet towers come
-with ``models/clip/resnet.py`` (``ROADMAP.md`` queue A).
+converter draws it from ``jax.random``). An RN tower's BatchNorms are
+folded into (scale, bias) in numpy float32, as the JAX converter folds
+them.
 """
 import math
 
 import numpy as np
 import torch
 
+from ..detr.resnet import fold_bn
 from .config import CLIPConfig
 from .model import init_adapter_params
 
@@ -36,28 +39,38 @@ def _t(a):
 def infer_config(sd, use_adapter=True, adapter_pos="all",
                  adapter_num_layers=1) -> CLIPConfig:
     """Infer the architecture from a state dict (build_model :934-957)."""
+    tw = _np(sd["ln_final.weight"]).shape[0]
+    text = dict(context_length=_np(sd["positional_embedding"]).shape[0],
+                vocab_size=_np(sd["token_embedding.weight"]).shape[0],
+                transformer_width=tw, transformer_heads=tw // 64,
+                transformer_layers=len({k.split(".")[2] for k in sd
+                                        if k.startswith(
+                                            "transformer.resblocks")}))
     if "visual.proj" not in sd:
-        raise NotImplementedError(
-            "ModifiedResNet CLIP checkpoints are not ported yet: "
-            "ROADMAP.md queue A, 'The remainder' (models/clip/resnet.py)")
+        # ModifiedResNet (:937, :943-945): no adapters in the tower
+        counts = tuple(
+            len({k.split(".")[2] for k in sd
+                 if k.startswith(f"visual.layer{b}.")}) for b in (1, 2, 3, 4))
+        grid = round((_np(sd["visual.attnpool.positional_embedding"])
+                      .shape[0] - 1) ** 0.5)
+        return CLIPConfig(
+            embed_dim=_np(sd["text_projection"]).shape[1],
+            image_resolution=grid * 32, vision_layers=sum(counts),
+            vision_width=_np(sd["visual.layer1.0.conv1.weight"]).shape[0],
+            vision_patch_size=32, rn_layers=counts, use_adapter=False,
+            adapter_layers=(), adapter_num_layers=adapter_num_layers, **text)
     vision_width = _np(sd["visual.conv1.weight"]).shape[0]
     vision_layers = len([k for k in sd if k.startswith("visual.")
                          and k.endswith(".attn.in_proj_weight")])
     patch = _np(sd["visual.conv1.weight"]).shape[-1]
     grid = round((_np(sd["visual.positional_embedding"]).shape[0] - 1) ** 0.5)
-    tw = _np(sd["ln_final.weight"]).shape[0]
     return CLIPConfig(
         embed_dim=_np(sd["text_projection"]).shape[1],
         image_resolution=patch * grid,
         vision_layers=vision_layers,
         vision_width=vision_width,
         vision_patch_size=patch,
-        context_length=_np(sd["positional_embedding"]).shape[0],
-        vocab_size=_np(sd["token_embedding.weight"]).shape[0],
-        transformer_width=tw,
-        transformer_heads=tw // 64,
-        transformer_layers=len({k.split(".")[2] for k in sd
-                                if k.startswith("transformer.resblocks")}),
+        **text,
         use_adapter=use_adapter,
         adapter_layers=CLIPConfig.adapter_layer_ids(adapter_pos,
                                                     vision_layers),
@@ -157,6 +170,40 @@ def _block(sd, prefix, cfg, has_adapter, gen):
     return p
 
 
+def _fold(sd, conv, bn):
+    return fold_bn(sd[conv + ".weight"], sd[bn + ".weight"], sd[bn + ".bias"],
+                   sd[bn + ".running_mean"], sd[bn + ".running_var"])
+
+
+def _rn_visual(sd, cfg: CLIPConfig, prefix="visual."):
+    """ModifiedResNet weights (:311-420) -> ``resnet.py``'s parameters,
+    BatchNorms folded; the attention pool's positional embedding resized
+    bilinearly where the target resolution differs (:352-370)."""
+    p = {"stem1": _fold(sd, prefix + "conv1", prefix + "bn1"),
+         "stem2": _fold(sd, prefix + "conv2", prefix + "bn2"),
+         "stem3": _fold(sd, prefix + "conv3", prefix + "bn3"),
+         "layers": []}
+    for li, n_blocks in enumerate(cfg.rn_layers):
+        blocks = []
+        for bi in range(n_blocks):
+            bp = f"{prefix}layer{li + 1}.{bi}."
+            blk = {f"conv{i}": _fold(sd, f"{bp}conv{i}", f"{bp}bn{i}")
+                   for i in (1, 2, 3)}
+            if bp + "downsample.0.weight" in sd:
+                blk["down"] = _fold(sd, bp + "downsample.0",
+                                    bp + "downsample.1")
+            blocks.append(blk)
+        p["layers"].append(blocks)
+    ap = prefix + "attnpool."
+    pos = interpolate_pos_embedding(_np(sd[ap + "positional_embedding"]),
+                                    (cfg.image_resolution // 32) ** 2 + 1)
+    p["attnpool"] = {"pos": _t(pos)}
+    for n in "qkvc":
+        p["attnpool"][n + "_w"] = _t(sd[f"{ap}{n}_proj.weight"])
+        p["attnpool"][n + "_b"] = _t(sd[f"{ap}{n}_proj.bias"])
+    return p
+
+
 def torch_state_dict_to_params(sd, cfg: CLIPConfig = None, use_adapter=True,
                                adapter_pos="all", adapter_num_layers=1,
                                gen=None):
@@ -169,9 +216,26 @@ def torch_state_dict_to_params(sd, cfg: CLIPConfig = None, use_adapter=True,
         cfg = inferred
     gen = gen if gen is not None else torch.Generator().manual_seed(0)
 
+    if cfg.is_resnet:
+        visual = _rn_visual(sd, cfg)
+    else:
+        visual = _vit_visual(sd, cfg, gen)
+    text = {
+        "token_embedding": _t(sd["token_embedding.weight"]),
+        "positional_embedding": _t(sd["positional_embedding"]),
+        "blocks": [_block(sd, f"transformer.resblocks.{i}", cfg, False, gen)
+                   for i in range(cfg.transformer_layers)],
+        "ln_final": _ln(sd, "ln_final"),
+        "text_projection": _t(sd["text_projection"]),
+    }
+    return {"visual": visual, "text": text,
+            "logit_scale": _t(sd["logit_scale"])}, cfg
+
+
+def _vit_visual(sd, cfg, gen):
     pos = interpolate_pos_embedding(_np(sd["visual.positional_embedding"]),
                                     cfg.grid_size ** 2 + 1)
-    visual = {
+    return {
         "conv1_w": _t(sd["visual.conv1.weight"]),
         "class_embedding": _t(sd["visual.class_embedding"]),
         "positional_embedding": _t(pos),
@@ -183,13 +247,3 @@ def torch_state_dict_to_params(sd, cfg: CLIPConfig = None, use_adapter=True,
         "ln_post": _ln(sd, "visual.ln_post"),
         "proj": _t(sd["visual.proj"]),
     }
-    text = {
-        "token_embedding": _t(sd["token_embedding.weight"]),
-        "positional_embedding": _t(sd["positional_embedding"]),
-        "blocks": [_block(sd, f"transformer.resblocks.{i}", cfg, False, gen)
-                   for i in range(cfg.transformer_layers)],
-        "ln_final": _ln(sd, "ln_final"),
-        "text_projection": _t(sd["text_projection"]),
-    }
-    return {"visual": visual, "text": text,
-            "logit_scale": _t(sd["logit_scale"])}, cfg

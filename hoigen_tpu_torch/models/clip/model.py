@@ -11,8 +11,9 @@ With ``cfg.fused_attention`` the blocks' self-attention goes through the
 fused attention kernels (``ops/attention.py``), whose backward is K4; the
 eval step turns it off, as the JAX package's does. The text tower's
 self-attention takes a causal additive mask, so it runs the plain ``mha``
-(the fused kernels take a per-key bias, not a mask), as in JAX. The
-ModifiedResNet tower comes with a later slice.
+(the fused kernels take a per-key bias, not a mask), as in JAX. An RN
+config (``cfg.rn_layers``) routes the image tower to the ModifiedResNet
+of ``resnet.py``.
 """
 import math
 
@@ -22,6 +23,7 @@ import torch
 from ...ops._weights import cast
 from ...ops.attention import fused_attention
 from .config import CLIPConfig
+from .resnet import init_modified_resnet_params, modified_resnet_forward
 
 LN_EPS = 1e-5
 
@@ -164,7 +166,18 @@ def encode_image(params, images, cfg: CLIPConfig, prior=None,
     """images: (B, 3, H, W) -> (global (B, embed), local (B, gh, gw, embed)).
     ln_post and the projection apply to every token; CLS is the global
     feature, the rest form the local grid. ``generator``: the adapters'
-    dropout (training); None runs none."""
+    dropout (training); None runs none.
+
+    An RN config runs the ModifiedResNet tower, which has no instance
+    adapters in the reference, so a prior is refused."""
+    if cfg.is_resnet:
+        if prior is not None:
+            raise ValueError(
+                "ModifiedResNet CLIP towers have no instance adapters "
+                "(CLIP_models_adapter_prior2.py:311-420); prior must be "
+                "None")
+        return modified_resnet_forward(params["visual"], images,
+                                       cfg.vision_heads)
     p = params["visual"]
     x = _patch_embed(images, p["conv1_w"])
     b, n_patch, width = x.shape
@@ -283,23 +296,29 @@ def init_clip_params(gen, cfg: CLIPConfig, text=False):
     layout and distributions; with ``text``, the text tower (``text``)
     too, drawn after them. The eval and training steps run no text, so
     ``init_hoi_model`` leaves it out; the CLI draws it when no CLIP
-    checkpoint is given."""
+    checkpoint is given. An RN config draws the ModifiedResNet tower
+    (``resnet.py::init_modified_resnet_params``) in place of the ViT."""
     width = cfg.vision_width
     scale = width ** -0.5
     ps = cfg.vision_patch_size
     n_tok = cfg.grid_size ** 2 + 1
-    visual = {
-        "conv1_w": torch.randn((width, 3, ps, ps), generator=gen) * scale,
-        "class_embedding": torch.randn((width,), generator=gen) * scale,
-        "positional_embedding": torch.randn((n_tok, width), generator=gen)
-        * scale,
-        "ln_pre": _ln_init(width),
-        "blocks": [_block_init(gen, width, cfg,
-                               cfg.use_adapter and i in cfg.adapter_layers)
-                   for i in range(cfg.vision_layers)],
-        "ln_post": _ln_init(width),
-        "proj": torch.randn((width, cfg.embed_dim), generator=gen) * scale,
-    }
+    if cfg.is_resnet:
+        visual = init_modified_resnet_params(
+            gen, cfg.rn_layers, width, cfg.embed_dim, cfg.grid_size)
+    else:
+        visual = {
+            "conv1_w": torch.randn((width, 3, ps, ps), generator=gen) * scale,
+            "class_embedding": torch.randn((width,), generator=gen) * scale,
+            "positional_embedding": torch.randn((n_tok, width),
+                                                generator=gen) * scale,
+            "ln_pre": _ln_init(width),
+            "blocks": [_block_init(gen, width, cfg, cfg.use_adapter
+                                   and i in cfg.adapter_layers)
+                       for i in range(cfg.vision_layers)],
+            "ln_post": _ln_init(width),
+            "proj": torch.randn((width, cfg.embed_dim), generator=gen)
+            * scale,
+        }
     params = {"visual": visual,
               "logit_scale": torch.tensor(float(np.log(1 / 0.07)))}
     if text:

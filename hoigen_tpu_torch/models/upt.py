@@ -20,6 +20,7 @@ from ..ops.boxes import box_iou, recover_boxes
 from ..ops.focal import binary_focal_loss_with_logits, prior_modulated_logits
 from ..ops.pallas_cache import fused_cache_logits
 from ..ops.roi_align import roi_align_mean
+from ..parallel.mesh import copy_to_group, reduce_from_group
 from .clip.config import CLIPConfig
 from .clip.model import apply_dropout, encode_image, mha
 from .proposals import ProposalConfig, make_pairs, pair_indices, \
@@ -183,36 +184,50 @@ def _cache_branch(feats, w, b, one_hots, sample_lens, use_pallas=False):
 
 
 def compute_logits(params, buffers, hum, obj, uni, feat_global, dino_feats,
-                   cfg: UPTConfig):
+                   cfg: UPTConfig, mesh=None):
     """All branch logits summed with learned scales. hum/obj/uni:
     (..., P, 512) L2-normalised pair features; feat_global (..., 512);
-    dino_feats (..., 2048) or None. Returns (..., P, C)."""
+    dino_feats (..., 2048) or None. Returns (..., P, C).
+
+    ``mesh`` (``parallel/mesh.py``), or None: on a model axis above 1 the
+    cache leaves hold this rank's rows (``shard_cache_rows``). Each cache
+    branch then scores its features against them and its partial logits
+    are summed over the model group before any scale multiplies them, so
+    that every replicated leaf gets its whole gradient."""
+    row_group = mesh.row_group if mesh is not None else None
+
+    def rows_in(f):
+        return f if row_group is None else copy_to_group(f, row_group)
+
+    def rows_out(lg):
+        return lg if row_group is None else reduce_from_group(lg, row_group)
+
     if cfg.use_weight_pred:
         concat = torch.cat([hum, obj, uni], dim=-1)
         w = torch.sigmoid(_mlp3(params["weight_pred_2"],
                                 _mlp3(params["weight_pred_1"], concat)))
     up = cfg.use_pallas_cache
     if cfg.cache_model == "gen_feat":
-        lg_h = _cache_branch(hum, params["adapter_H_w"],
-                             params["adapter_H_b"], buffers["one_hots_H"],
-                             buffers["sample_lens_H"], up)
-        lg_o = _cache_branch(obj, params["adapter_O_w"],
-                             params["adapter_O_b"], buffers["one_hots_O"],
-                             buffers["sample_lens_O"], up)
-        lg_u = _cache_branch(uni, params["adapter_U_w"],
-                             params["adapter_U_b"], buffers["one_hots_U"],
-                             buffers["sample_lens_U"], up)
+        lg_h = rows_out(_cache_branch(
+            rows_in(hum), params["adapter_H_w"], params["adapter_H_b"],
+            buffers["one_hots_H"], buffers["sample_lens_H"], up))
+        lg_o = rows_out(_cache_branch(
+            rows_in(obj), params["adapter_O_w"], params["adapter_O_b"],
+            buffers["one_hots_O"], buffers["sample_lens_O"], up))
+        lg_u = rows_out(_cache_branch(
+            rows_in(uni), params["adapter_U_w"], params["adapter_U_b"],
+            buffers["one_hots_U"], buffers["sample_lens_U"], up))
         logits = (lg_h * params["logit_scale_H"]
                   + lg_o * params["logit_scale_O"]
                   + lg_u * params["logit_scale_U"])
     else:
         ho = torch.cat([hum, obj], dim=-1)
-        lg_ho = _cache_branch(ho, params["adapter_HO_w"],
-                              params["adapter_HO_b"], buffers["one_hots_HO"],
-                              buffers["sample_lens_HO"], up) / 2.0
-        lg_u = _cache_branch(uni, params["adapter_U_w"],
-                             params["adapter_U_b"], buffers["one_hots_U"],
-                             buffers["sample_lens_U"], up)
+        lg_ho = rows_out(_cache_branch(
+            rows_in(ho), params["adapter_HO_w"], params["adapter_HO_b"],
+            buffers["one_hots_HO"], buffers["sample_lens_HO"], up)) / 2.0
+        lg_u = rows_out(_cache_branch(
+            rows_in(uni), params["adapter_U_w"], params["adapter_U_b"],
+            buffers["one_hots_U"], buffers["sample_lens_U"], up))
         if cfg.use_weight_pred:
             logits = lg_ho * w[..., 0:1] + lg_u * w[..., 1:2]
         else:
@@ -227,14 +242,16 @@ def compute_logits(params, buffers, hum, obj, uni, feat_global, dino_feats,
     # the global and DINO cache logits enter the sum only with gen_feat
     if cfg.cache_model == "gen_feat":
         if cfg.use_clip_global:
-            aff = feat_global @ params["global_cache"] \
+            aff = rows_in(feat_global) @ params["global_cache"] \
                 + params["global_cache_bias"]
-            lg_g = (aff @ buffers["global_values"]) \
+            lg_g = rows_out(aff @ buffers["global_values"]) \
                 / buffers["global_sample_len"]
             logits = logits + lg_g[..., None, :] * params["clip_cache_logit"]
         if cfg.use_dino and dino_feats is not None:
-            aff = dino_feats @ params["dino_cache"] + params["dino_cache_bias"]
-            lg_d = (aff @ buffers["dino_values"]) / buffers["dino_sample_len"]
+            aff = rows_in(dino_feats) @ params["dino_cache"] \
+                + params["dino_cache_bias"]
+            lg_d = rows_out(aff @ buffers["dino_values"]) \
+                / buffers["dino_sample_len"]
             logits = logits + lg_d[..., None, :] * params["dino_cache_logit"]
     return logits
 
@@ -285,7 +302,7 @@ def language_aware_loss(params, origin_text_embeddings, weight: float):
 def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
                 clip_cfg: CLIPConfig, cfg: UPTConfig, dino_apply=None,
                 targets=None, training=False, generator=None,
-                gen_sample=None):
+                gen_sample=None, mesh=None):
     """One batched step.
 
     detr_post: DETR postprocess at the CLIP-stream image sizes:
@@ -298,6 +315,7 @@ def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
       adapters' and the ROI features' dropout; None runs no dropout.
     gen_sample (training, generate_feature): hum/obj/uni (B, 512)
       generated features, verb_multihot (B, C), obj_cls (B,).
+    mesh: where the cache rows are sharded (``compute_logits``), or None.
     Eval returns the detection dict: dense and compact (verb-LUT) scores,
     verb ids, slot boxes/scores/labels/valid, pair_valid, objects, logits.
     Training returns (loss, aux) with aux's loss_sum, n_p and gt_labels."""
@@ -341,14 +359,14 @@ def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
     uni = _l2(union)
 
     logits = compute_logits(params, buffers, hum, obj, uni, feat_global,
-                            dino_feats, cfg)
+                            dino_feats, cfg, mesh)
     prior = compute_prior_scores(scores, labels, pair_valid,
                                  buffers["object_class_multihot"],
                                  x_idx, y_idx, training, cfg)
     if training:
         return _training_loss(params, buffers, logits, prior, pair_valid,
                               bh, bo, targets, image_sizes, dino_feats,
-                              gen_sample, cfg)
+                              gen_sample, cfg, mesh)
     pp = prior[0] * prior[1]
     # mask first, so that a non-finite logit cannot leak into a zero-prior
     # (padding) slot
@@ -365,7 +383,7 @@ def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
 
 def _training_loss(params, buffers, logits, prior, pair_valid, bh, bo,
                    targets, image_sizes, dino_feats, gen_sample,
-                   cfg: UPTConfig):
+                   cfg: UPTConfig, mesh=None):
     """The training tail of upt_forward: labels by ground-truth
     association, one generated pair per image appended, and the masked
     focal loss over the positive count. -> (loss, aux)."""
@@ -379,7 +397,7 @@ def _training_loss(params, buffers, logits, prior, pair_valid, bh, bo,
         # feature, not the image CLS; the DINO branch keeps the image's
         # features, as in the JAX package
         g_logits = compute_logits(params, buffers, g_h, g_o, g_u, g_u[:, 0],
-                                  dino_feats, cfg)
+                                  dino_feats, cfg, mesh)
         logits = torch.cat([logits, g_logits], dim=1)
         g_prior = buffers["object_class_multihot"][
             gen_sample["obj_cls"].long()][None, :, None, :].expand(

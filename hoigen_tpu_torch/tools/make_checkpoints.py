@@ -1,6 +1,7 @@
 """Random checkpoint files under the reference's key names, from a seed: a
-CLIP state dict (OpenAI's keys, the text tower included; optionally the
-reference model's instance adapters), a DETR checkpoint (``{"model":
+CLIP state dict (OpenAI's keys, the text tower included; a ViT with,
+optionally, the reference model's instance adapters, or a ModifiedResNet
+such as :data:`RN50`), a DETR checkpoint (``{"model":
 state dict}``, facebookresearch/detr's keys), a DINO checkpoint
 (``{"teacher": state dict}``, torchvision ResNet-50 keys under
 ``backbone.``) and a pair-embedding pickle for a dataset's images.
@@ -29,6 +30,12 @@ from ..models.detr.config import DETRConfig
 from ..models.detr.resnet import LAYER_BLOCKS
 
 FEATURE_DIM = 512
+# OpenAI's RN50: ModifiedResNet (3, 4, 6, 3) of width 64 at 224 pixels, a
+# 1024-wide attention pool output, the 512-wide text tower
+RN50 = CLIPConfig(embed_dim=1024, image_resolution=224, vision_layers=16,
+                  vision_width=64, vision_patch_size=32,
+                  rn_layers=(3, 4, 6, 3), use_adapter=False,
+                  adapter_layers=())
 
 
 def _normal(gen, shape, std):
@@ -74,27 +81,60 @@ def _adapter(gen, sd, key, cfg: CLIPConfig):
         _linear(gen, sd, p + ".linear2", bn, 2 * bn)
 
 
+def _rn_visual(gen, sd, cfg: CLIPConfig):
+    """The ModifiedResNet tower's keys (``visual.conv1``..``bn3``, the
+    ``layer<i>.<j>`` bottlenecks, ``attnpool``)."""
+    w = cfg.vision_width
+    for i, (o, c) in enumerate(((w // 2, 3), (w // 2, w // 2), (w, w // 2))):
+        _conv_bn(gen, sd, f"visual.conv{i + 1}", f"visual.bn{i + 1}", o, c,
+                 3)
+    in_c = w
+    for li, n_blocks in enumerate(cfg.rn_layers):
+        planes = w * 2 ** li
+        for bi in range(n_blocks):
+            p = f"visual.layer{li + 1}.{bi}"
+            _conv_bn(gen, sd, p + ".conv1", p + ".bn1", planes, in_c, 1)
+            _conv_bn(gen, sd, p + ".conv2", p + ".bn2", planes, planes, 3)
+            _conv_bn(gen, sd, p + ".conv3", p + ".bn3", 4 * planes, planes,
+                     1)
+            if bi == 0:
+                _conv_bn(gen, sd, p + ".downsample.0", p + ".downsample.1",
+                         4 * planes, in_c, 1)
+            in_c = 4 * planes
+    e = w * 32
+    sd["visual.attnpool.positional_embedding"] = _normal(
+        gen, (cfg.grid_size ** 2 + 1, e), e ** -0.5)
+    for n in "qkv":
+        _linear(gen, sd, f"visual.attnpool.{n}_proj", e, e)
+    _linear(gen, sd, "visual.attnpool.c_proj", cfg.embed_dim, e)
+
+
 def clip_state_dict(cfg: CLIPConfig, seed=0, adapters=False):
-    """A ViT CLIP state dict of ``cfg``'s shapes under OpenAI's key names,
-    the text tower included; with ``adapters``, the reference model's
-    ``adaptermlp`` weights in ``cfg.adapter_layers``."""
+    """A CLIP state dict of ``cfg``'s shapes under OpenAI's key names, the
+    text tower included: a ViT, with ``adapters`` the reference model's
+    ``adaptermlp`` weights in ``cfg.adapter_layers``; or, for an RN config
+    (``cfg.rn_layers``), a ModifiedResNet."""
     gen = torch.Generator().manual_seed(seed)
     w, tw = cfg.vision_width, cfg.transformer_width
-    n_tok = cfg.grid_size ** 2 + 1
-    sd = {"visual.conv1.weight": _normal(
-              gen, (w, 3, cfg.vision_patch_size, cfg.vision_patch_size),
-              (3 * cfg.vision_patch_size ** 2) ** -0.5),
-          "visual.class_embedding": _normal(gen, (w,), w ** -0.5),
-          "visual.positional_embedding": _normal(gen, (n_tok, w),
-                                                 w ** -0.5)}
-    _ln(gen, sd, "visual.ln_pre", w)
-    for i in range(cfg.vision_layers):
-        key = f"visual.transformer.resblocks.{i}"
-        _clip_block(gen, sd, key, w)
-        if adapters and i in cfg.adapter_layers:
-            _adapter(gen, sd, key + ".adaptermlp", cfg)
-    _ln(gen, sd, "visual.ln_post", w)
-    sd["visual.proj"] = _normal(gen, (w, cfg.embed_dim), w ** -0.5)
+    sd = {}
+    if cfg.is_resnet:
+        _rn_visual(gen, sd, cfg)
+    else:
+        n_tok = cfg.grid_size ** 2 + 1
+        sd["visual.conv1.weight"] = _normal(
+            gen, (w, 3, cfg.vision_patch_size, cfg.vision_patch_size),
+            (3 * cfg.vision_patch_size ** 2) ** -0.5)
+        sd["visual.class_embedding"] = _normal(gen, (w,), w ** -0.5)
+        sd["visual.positional_embedding"] = _normal(gen, (n_tok, w),
+                                                    w ** -0.5)
+        _ln(gen, sd, "visual.ln_pre", w)
+        for i in range(cfg.vision_layers):
+            key = f"visual.transformer.resblocks.{i}"
+            _clip_block(gen, sd, key, w)
+            if adapters and i in cfg.adapter_layers:
+                _adapter(gen, sd, key + ".adaptermlp", cfg)
+        _ln(gen, sd, "visual.ln_post", w)
+        sd["visual.proj"] = _normal(gen, (w, cfg.embed_dim), w ** -0.5)
     sd["token_embedding.weight"] = _normal(gen, (cfg.vocab_size, tw), 0.02)
     sd["positional_embedding"] = _normal(gen, (cfg.context_length, tw), 0.01)
     for i in range(cfg.transformer_layers):

@@ -494,14 +494,16 @@ def test_main_vcoco_eval_and_cache(tmp_path, monkeypatch):
 
 def test_main_refuses_what_it_cannot_run(monkeypatch, tmp_path):
     """No card and no device="cpu": it raises rather than run on the CPU;
-    a data-parallel run is not ported yet."""
+    --devices 2 where one card is visible raises before it starts a
+    process."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmf.main(TRunConfig(output_dir=str(tmp_path / "o")))
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        tmf.main(TRunConfig(devices=2, output_dir=str(tmp_path / "o")),
-                 device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="need 2 CUDA devices; 1 are"):
+        tmf.main(TRunConfig(devices=2, output_dir=str(tmp_path / "o")))
     assert not os.path.exists(tmp_path / "o")
 
 

@@ -157,11 +157,15 @@ def test_batches_from_factory_matches_jax(trees, num_workers):
                        [(d, dataclasses.asdict(b)) for d, b in want])
 
 
-def test_batches_from_factory_refuses_data_parallel(trees):
+def test_batches_from_factory_refuses_data_parallel(trees, monkeypatch):
+    """A data-parallel split that cannot be made: a global batch of 2 over
+    3 processes (the process count and index seen by the sampler)."""
+    from hoigen_tpu_torch.parallel import distributed
     _, tf = _factories(trees, "hicodet", False)
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        next(tcli.batches_from_factory(tf, 2, tconfig.RunConfig(),
-                                       mesh=object()))
+    monkeypatch.setattr(distributed, "process_count", lambda: 3)
+    monkeypatch.setattr(tcli, "process_count", lambda: 3)
+    with pytest.raises(ValueError, match="must divide over 3 processes"):
+        next(tcli.batches_from_factory(tf, 2, tconfig.RunConfig()))
 
 
 def test_run_config_matches_jax():

@@ -1,10 +1,10 @@
 """hoigen_tpu_torch stands alone: it imports neither JAX nor the JAX package.
 
 In a fresh interpreter where ``import jax``, ``import hoigen_tpu``,
-``import triton`` and ``import regex`` raise, every module of the port and
-``chip_smoke.py`` import, no module of JAX, of the JAX package, of Triton
-or of ``regex`` appears in ``sys.modules``, and the port's CLI prints its
-help.
+``import triton``, ``import regex`` and ``import matplotlib`` raise, every
+module of the port and ``chip_smoke.py`` import, no module of JAX, of the
+JAX package, of Triton, of ``regex`` or of matplotlib appears in
+``sys.modules``, and the port's CLIs print their help.
 """
 import pathlib
 import subprocess
@@ -24,7 +24,7 @@ import importlib, sys
 class _Refuse:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu", "triton",
-                                  "regex"):
+                                  "regex", "matplotlib"):
             raise ImportError(f"{name} must not be imported by the port")
         return None
 
@@ -33,7 +33,7 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "hoigen_tpu", "triton",
-                                    "regex"))
+                                    "regex", "matplotlib"))
 assert not bad, bad
 print("ok", len(sys.argv) - 1)
 """
@@ -87,7 +87,17 @@ def test_port_imports_without_jax(modules):
             "hoigen_tpu_torch.cli.main_vae",
             "hoigen_tpu_torch.cli.finetune_ship",
             "hoigen_tpu_torch.cli.train_detr",
-            "hoigen_tpu_torch.cli.detections"} <= set(PORT_MODULES)
+            "hoigen_tpu_torch.cli.detections",
+            # parallelism, the inference CLI, profiling and the remainder
+            "hoigen_tpu_torch.parallel",
+            "hoigen_tpu_torch.parallel.distributed",
+            "hoigen_tpu_torch.parallel.mesh",
+            "hoigen_tpu_torch.cli.inference",
+            "hoigen_tpu_torch.engine.profiling",
+            "hoigen_tpu_torch.models.clip.resnet",
+            "hoigen_tpu_torch.models.interaction_head",
+            "hoigen_tpu_torch.ops.spatial",
+            "hoigen_tpu_torch.ops.masks"} <= set(PORT_MODULES)
     res = _probe(*modules)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == f"ok {len(modules)}"
@@ -121,7 +131,8 @@ def test_port_cli_prints_its_help_without_jax():
     ("main_vae", ["--ctx-init", "--split-json"]),
     ("finetune_ship", ["--vae-ckpt", "--gt-features"]),
     ("train_detr", ["--lr-backbone", "--no-aux-loss"]),
-    ("detections", ["--label-map", "--score-thresh"])])
+    ("detections", ["--label-map", "--score-thresh"]),
+    ("inference", ["--action-score-thresh", "--failure"])])
 def test_generator_and_detr_clis_print_their_help_without_jax(cli, flags):
     """The same for the generator pipeline's and the DETR finetune's
     CLIs."""
