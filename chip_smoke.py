@@ -33,7 +33,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    adapter-CLIP ViT-B/16 in f32, the UPT head with 600 classes, gen_feat
    caches, an 800x1344 uint8 feed) from random weights made from
    ``--seed``, with the launch counters set to 0 just before it, and check
-   the outputs and that every kernel of the path launched;
+   the outputs and that every kernel of the path launched; the step is
+   captured as one CUDA graph per batch shape and replayed
+   (``engine/cuda_graph.py``, the counterpart of ``jax.jit``), and the
+   counters include the replays;
+5b. on phase 5's model and feed, the graphed step against the eager step:
+   the outputs (indices exact, scores and boxes within two bf16 ulps),
+   both timed in one window with their busy time, idle share and runtime
+   calls (the graphed step under 20 kernel launch calls and one graph
+   launch a step), the input copy alone, the captures' seconds and pool
+   bytes, the per-call weight check's host time; then a K3 and a K2
+   weight written in place and a params tree with replaced tensors
+   between replays, each replay against a fresh eager step;
 6. check a small training step's loss and gradients on the card against
    the CPU, then drive the full-width training step (f32 towers, 117
    classes, one generated pair per image, the fused cache and CLIP's fused
@@ -42,7 +53,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    tensor is unchanged and that the trained ones moved;
 7. run the HICO-DET evaluation from a dataset on disk to its mAP as the
    CLI runs it (``DataFactory`` -> ``eval_batches``, tail padded -> the
-   eval step of phase 5 -> ``evaluate_hico``) on 18 random JPEGs of both
+   graphed eval step of phase 5, one graph a bucket captured in the first
+   pass -> ``evaluate_hico``) on 18 random JPEGs of both
    orientations written to a temporary directory, with the counters set
    to 0 just before it; check the launches per batch, the buckets, the
    AP vector and that no padded row reached the meter; time the whole
@@ -1066,19 +1078,22 @@ def small_reference_check(seed):
 
 
 def main_path(model, batch, cfg, warmup, steps):
-    """Phase 5: the full-width eval step, counters zeroed just before.
-    Returns (launch counts, timed step times in s, outputs of the last
-    step). Each step is timed alone, from a synchronised start to its
-    synchronised end."""
+    """Phase 5: the full-width eval step as the CLI runs it, captured as
+    one CUDA graph per batch shape (``engine/cuda_graph.py``; the first
+    call warms up and captures, the rest replay), counters zeroed just
+    before. Returns (launch counts, timed step times in s, outputs of the
+    last step, the graphed step). Each step is timed alone, from a
+    synchronised start to its synchronised end."""
     import torch
 
+    from hoigen_tpu_torch.engine.cuda_graph import graphed
     from hoigen_tpu_torch.engine.hoi_model import make_eval_step
     from hoigen_tpu_torch.ops.attention import fused_attention
     from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
     from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
 
     params, buffers = model
-    step = make_eval_step(cfg, device=batch["images"].device)
+    step = graphed(make_eval_step(cfg, device=batch["images"].device))
     wrappers = (fused_attention, fused_bottleneck_chain, fused_cache_logits)
     for fn in wrappers:
         fn.launches = 0
@@ -1090,7 +1105,7 @@ def main_path(model, batch, cfg, warmup, steps):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = [fn.launches for fn in wrappers]
-    return counts, times[warmup:], out
+    return counts, times[warmup:], out, step
 
 
 def profile_steps(run_step, steps):
@@ -1127,7 +1142,7 @@ def profile_steps(run_step, steps):
     # the copies and synchronisations that make the host wait for the card)
     # and the operators that take the most host time of their own
     runtime = {ev.key: ev.count / steps for ev in events
-               if ev.key.startswith("cuda")}
+               if ev.key.startswith(("cuda", "cuLaunch"))}
     host = sorted(((ev.key, ev.self_cpu_time_total / 1e3 / steps,
                     ev.count / steps)
                    for ev in events if ev.key.startswith("aten::")),
@@ -1162,6 +1177,147 @@ def step_stats(times_s, batch):
     q1, median, q3 = (float(v) for v in np.percentile(ms, (25, 50, 75)))
     return (float(ms.mean()), median, q1, q3,
             batch * len(ms) / (ms.sum() / 1e3))
+
+
+def same_outputs(what, got, want):
+    """Fail unless the eval outputs ``got`` hold ``want``'s indices and
+    masks exactly and its scores and boxes within two bf16 ulps of their
+    scale. -> {key: max abs difference}."""
+    import torch
+    for k in ("pair_valid", "objects", "detection_verbs"):
+        if not torch.equal(got[k], want[k]):
+            fail(f"{what}: {k} differs")
+    diffs = {}
+    for k in ("detection_scores", "boxes"):
+        diffs[k] = float((got[k].float() - want[k].float()).abs().max())
+        scale = max(1.0, float(want[k].abs().max()))
+        if not diffs[k] <= KERNEL_TOL * scale:
+            fail(f"{what}: {k} differs by {diffs[k]:.3e} (scale {scale:g})")
+    log(f"{what}: indices equal; scores and boxes within "
+        f"{diffs['detection_scores']:.3e} and {diffs['boxes']:.3e}")
+    return diffs
+
+
+def graph_phase(model, batch, cfg, args, card, gstep):
+    """Phase 5b: phase 5's graphed eval step ``gstep`` against the eager
+    step on phase 5's model and feed: the outputs; both timed in one
+    window (warm-up and timed steps as phase 5, then profiled steps: busy
+    time, runtime calls); the input copy alone, from card tensors and from
+    numpy through the pinned staging; the captures' seconds and pool
+    bytes and the per-call weight check's host time; then, between
+    replays, a cache weight that K3 reads through ``_weights.prepared``
+    and a DETR layer1 weight that K2 prepares written in place, and a
+    params tree with replaced tensors (``apply_vis_tor``), each replay
+    against a fresh eager step. The weights are restored after. ->
+    record."""
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.engine.cuda_graph import signature
+    from hoigen_tpu_torch.engine.hoi_model import make_eval_step
+    from hoigen_tpu_torch.models.upt import apply_vis_tor
+
+    t5b = time.perf_counter()
+    params, buffers = model
+    eager = make_eval_step(cfg)
+    g = gstep.graphs[signature(batch)]
+    record = {"graphed_vs_eager": same_outputs(
+        "phase 5b: graphed step against the eager step",
+        gstep(params, buffers, batch), eager(params, buffers, batch)),
+        "card": card}
+
+    def timed_ms(fn, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    for name, step in (("eager", eager), ("graphed", gstep)):
+        def run(step=step):
+            return step(params, buffers, batch)
+        times = timed_ms(run, args.warmup + args.steps)[args.warmup:]
+        mean, median, q1, q3, rate = step_stats(times, args.batch)
+        log(f"phase 5b {name}: {len(times)} timed steps after "
+            f"{args.warmup} warm-up: mean {mean:.3f} ms, median "
+            f"{median:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms; "
+            f"{rate:.2f} images/s at batch {args.batch} on {card}")
+        profiled = profile_steps(run, args.profile_steps)
+        busy = report_profile(f"phase 5b {name}", profiled,
+                              args.profile_steps, mean)
+        runtime = profiled[2]
+        record[name] = {
+            "mean_ms": mean, "median_ms": median, "q1_ms": q1, "q3_ms": q3,
+            "images_per_s": rate, "device_busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / mean,
+            "runtime_calls_per_step": runtime}
+    launches = sum(v for k, v in record["graphed"][
+        "runtime_calls_per_step"].items() if "LaunchKernel" in k)
+    if not launches < 20 or \
+            record["graphed"]["runtime_calls_per_step"].get(
+                "cudaGraphLaunch") != 1:
+        fail(f"phase 5b: the graphed step makes {launches:g} kernel "
+             "launch calls a step, runtime calls "
+             f"{record['graphed']['runtime_calls_per_step']}")
+
+    # the input copy alone, and the graphed step from the host feed
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    for name, feed in (("card tensors", batch), ("numpy", host)):
+        ms = 1e3 * float(np.mean(timed_ms(lambda feed=feed: g.load(feed),
+                                          20)))
+        record[f"input_copy_ms_{name.split()[0]}"] = ms
+        log(f"phase 5b: the input copy alone from {name}: {ms:.3f} ms "
+            "(mean of 20)")
+    times = timed_ms(lambda: gstep(params, buffers, host), 20)
+    mean, median, _, _, rate = step_stats(times, args.batch)
+    record["graphed_host_feed"] = {"mean_ms": mean, "median_ms": median,
+                                   "images_per_s": rate}
+    log(f"phase 5b graphed from the numpy feed (copy included): mean "
+        f"{mean:.3f} ms, median {median:.3f} ms; {rate:.2f} images/s")
+
+    # weights changed between replays: each replay against a fresh eager
+    # step, after one call that captures again
+    def after_change(what, p):
+        captures = g.captures
+        gstep(p, buffers, batch)
+        got = gstep(p, buffers, batch)
+        if g.captures != captures + 1:
+            fail(f"phase 5b {what}: {g.captures - captures} captures, "
+                 "expected 1")
+        return same_outputs(f"phase 5b {what}: the replay against a fresh "
+                            "eager step", got, eager(p, buffers, batch)), got
+
+    before = gstep(params, buffers, batch)
+    cache_w = params["upt"]["adapter_H_w"]
+    layer1_w = params["detr"]["backbone"]["layers"][0][1]["conv1"]["w"]
+    saved = [cache_w.detach().clone(), layer1_w.detach().clone()]
+    with torch.no_grad():
+        cache_w.mul_(1.25)
+        layer1_w.mul_(0.8)
+    record["in_place_write"], got = after_change(
+        "in-place write to a K3 and a K2 weight", params)
+    replaced = dict(params, upt=apply_vis_tor(params["upt"], cfg.upt, 2.0))
+    record["replaced_tensors"], got2 = after_change(
+        "params with replaced tensors", replaced)
+    if torch.equal(got["detection_scores"], before["detection_scores"]) or \
+            torch.equal(got2["detection_scores"], got["detection_scores"]):
+        fail("phase 5b: a weight change left the scores unchanged")
+    with torch.no_grad():
+        cache_w.copy_(saved[0])
+        layer1_w.copy_(saved[1])
+    record["restored"], _ = after_change("weights restored", params)
+    check_us = 1e6 * gstep.check_s / gstep.checks
+    record["graphs"] = gstep.records()
+    record["check_us_per_call"] = check_us
+    for key, rec in record["graphs"].items():
+        log(f"phase 5b: graph {key}: {rec}")
+    log(f"phase 5b: the weight check's host time {check_us:.1f} us a call "
+        f"(mean of {gstep.checks})")
+    log(f"phase 5b took {time.perf_counter() - t5b:.1f} s")
+    return record
 
 
 # --------------------------------------------------- evaluation from disk
@@ -1304,6 +1460,7 @@ def eval_from_disk_phase(model, cfg, args, card):
     from hoigen_tpu_torch.data import factory as factory_module
     from hoigen_tpu_torch.data.factory import slice_batch
     from hoigen_tpu_torch.engine import hoi_model as hm
+    from hoigen_tpu_torch.engine.cuda_graph import graphed
     from hoigen_tpu_torch.models.cache import random_caches
     from hoigen_tpu_torch.ops.attention import fused_attention
     from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
@@ -1326,7 +1483,8 @@ def eval_from_disk_phase(model, cfg, args, card):
 
         wrappers = (fused_attention, fused_bottleneck_chain,
                     fused_cache_logits)
-        step = hm.make_eval_step(cfg)
+        # one graph per bucket, captured in the first pass
+        step = graphed(hm.make_eval_step(cfg))
         for fn in wrappers:
             fn.launches = 0
         result, runs, info = evaluate_from_disk(step, model, cfg, run_cfg,
@@ -1399,7 +1557,9 @@ def eval_from_disk_phase(model, cfg, args, card):
             "evaluate_hico_s": first["evaluate_hico_s"],
             "step_images_per_s": args.batch * n_batches / first["steps_s"],
             "step_ms": first["step_ms"],
-            "passes": passes,
+            "warm_step_images_per_s": args.batch * n_batches * (
+                len(passes) - 1) / sum(p["steps_s"] for p in passes[1:]),
+            "passes": passes, "graphs": step.records(),
             "launches": dict(zip(("attention_fwd", "bottleneck_chain_fwd",
                                   "cache_logits_fwd"), counts)),
             "card": card}
@@ -1409,8 +1569,9 @@ def eval_from_disk_phase(model, cfg, args, card):
         log(f"eval from disk: loader alone {loader_s:.3f} s a pass; "
             "steps by CUDA events around each (no sync)")
         for i, p in enumerate(passes):
-            log(f"eval from disk, pass {i + 1} of {len(passes)}"
-                f"{' (first calls of each shape)' if i == 0 else ''}: "
+            note = " (first calls of each shape: warm-up and capture)" \
+                if i == 0 else ""
+            log(f"eval from disk, pass {i + 1} of {len(passes)}{note}: "
                 f"{n_img} images in {p['total_s']:.3f} s, "
                 f"{p['images_per_s']:.2f} images/s from the first fetch to "
                 f"the result; steps {p['steps_s']:.3f} s (ms "
@@ -1423,8 +1584,11 @@ def eval_from_disk_phase(model, cfg, args, card):
             f"{card}")
         log(f"eval from disk: the step alone at "
             f"{record['step_images_per_s']:.2f} images/s over {n_batches} "
-            f"padded batches of {args.batch} in the first pass (phase 5: "
-            "the line 'main path: eval step')")
+            f"padded batches of {args.batch} in the first pass, "
+            f"{record['warm_step_images_per_s']:.2f} images/s in passes "
+            f"2-{len(passes)} (phase 5: the line 'main path: eval step')")
+        for key, rec in record["graphs"].items():
+            log(f"eval from disk: graph {key}: {rec}")
 
         # the small configuration, card against CPU, on the same tree
         small = tiny_config()
@@ -1447,7 +1611,8 @@ def eval_from_disk_phase(model, cfg, args, card):
             # detection could match a ground-truth pair
             spread_detection_heads(params, args.seed, scale=6.0)
             return evaluate_from_disk(
-                hm.make_eval_step(small, device=device), (params, buffers),
+                graphed(hm.make_eval_step(small, device=device)),
+                (params, buffers),
                 small, small_cfg, *small_factories(), device == "cuda")
 
         try:
@@ -2592,7 +2757,11 @@ class P11Probe:
                 if probe.eval is None:
                     probe.eval = {"step": eval_step, "model": (params,
                                                                buffers),
-                                  "batch": {k: np.array(v)
+                                  # the graphed step hands its static
+                                  # inputs (on the card) to its warm-up
+                                  "batch": {k: np.array(v.cpu())
+                                            if hasattr(v, "cpu")
+                                            else np.array(v)
                                             for k, v in batch.items()},
                                   "out": {k: v.cpu().numpy()
                                           for k, v in out.items()}}
@@ -3433,16 +3602,15 @@ def head_and_masks_card_and_cpu(seed):
     return err, mask_s
 
 
-def profiling_check(model, cfg, batch, eval_images_per_s):
-    """``engine/profiling.py`` on phase 5's eval step: a trace of five
-    steps written as a Chrome trace, StepTimer's images/s over the same
-    steps beside phase 5's, and the card's peak allocation. -> record."""
+def profiling_check(model, step, batch, eval_images_per_s):
+    """``engine/profiling.py`` on phase 5's graphed eval step ``step``: a
+    trace of five steps written as a Chrome trace, StepTimer's images/s
+    over the same steps beside phase 5's, and the card's peak allocation.
+    -> record."""
     import tempfile
 
-    from hoigen_tpu_torch.engine.hoi_model import make_eval_step
     from hoigen_tpu_torch.engine.profiling import StepTimer, \
         device_memory_stats, trace
-    step = make_eval_step(cfg)
     timer = StepTimer()
     logdir = tempfile.mkdtemp(prefix="trace_")
     with trace(logdir):
@@ -3637,8 +3805,8 @@ def main():
 
     # phase 5: the main path
     t5 = time.perf_counter()
-    counts, times, out = main_path(model, batch, cfg, args.warmup,
-                                   args.steps)
+    counts, times, out, gstep = main_path(model, batch, cfg, args.warmup,
+                                          args.steps)
     per_step = (6, 1, 3)          # encoder layers, layer1 tail, H/O/U
     n_run = args.warmup + args.steps
     expect = [n * n_run for n in per_step]
@@ -3672,13 +3840,13 @@ def main():
         f"{median_ms:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms, min "
         f"{ms.min():.3f} ms, max {ms.max():.3f} ms; {images_per_s:.2f} "
         f"images/s at batch {args.batch} on {card}")
-    from hoigen_tpu_torch.engine.hoi_model import make_eval_step
-    step = make_eval_step(cfg)
     busy_ms = report_profile(
-        "main path", profile_steps(lambda: step(*model, batch),
+        "main path", profile_steps(lambda: gstep(*model, batch),
                                    args.profile_steps),
         args.profile_steps, mean_ms)
     log(f"phase 5 took {time.perf_counter() - t5:.1f} s")
+    # phase 5b: the graphed step against the eager step
+    graph_run = graph_phase(model, batch, cfg, args, card, gstep)
     eval_step = {"batch": args.batch, "steps": len(ms), "mean_ms": mean_ms,
                  "median_ms": median_ms, "q1_ms": q1, "q3_ms": q3,
                  "images_per_s": images_per_s, "device_busy_ms": busy_ms,
@@ -3737,10 +3905,10 @@ def main():
     # phase 7: the HICO-DET evaluation from disk
     eval_run = eval_from_disk_phase(model, cfg, args, card)
     # phase 12's profiling check, on phase 5's eval step while it is here
-    profiling = profiling_check(model, cfg, batch, images_per_s)
+    profiling = profiling_check(model, gstep, batch, images_per_s)
 
     # phase 8: the CLI end to end
-    del model, train_model, trainer
+    del model, train_model, trainer, gstep
     torch.cuda.empty_cache()
     import shutil
     import tempfile
@@ -3832,7 +4000,7 @@ def main():
             # {kernel: (registers, spill store bytes, spill load bytes)}
             rec["ptxas"] = ptxas.get("fused_resnet", {})
     line = {"kernels": records, "to_port": [],
-            "eval_step": eval_step,
+            "eval_step": eval_step, "graph_run": graph_run,
             "train_step": {"batch": args.batch, "steps": len(tms),
                            "mean_ms": tmean, "median_ms": tmedian,
                            "q1_ms": tq1, "q3_ms": tq3,

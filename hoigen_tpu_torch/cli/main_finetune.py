@@ -43,6 +43,7 @@ import torch
 from ..data.factory import DataFactory, collate_batch, slice_batch
 from ..data.loader import batch_indices, iter_batches
 from ..engine.checkpoint import latest_checkpoint
+from ..engine.cuda_graph import graphed
 from ..engine.eval import cache_hico, cache_vcoco, evaluate_hico, \
     evaluate_vcoco
 from ..engine.hoi_model import HOIModelConfig, full_f32, init_hoi_model, \
@@ -436,7 +437,8 @@ def eval_batches(eval_step, params, buffers, factory, cfg: RunConfig):
     (a sync) before the next step is dispatched, as the JAX loop does, so
     the lookahead delays the yield but overlaps no card work with the
     caller's host AP. ``eval_step`` is
-    ``engine/hoi_model.py::make_eval_step``'s. The padded rows never reach
+    ``engine/hoi_model.py::make_eval_step``'s, on the card through
+    ``engine/cuda_graph.py::graphed``. The padded rows never reach
     the caller, so ``evaluate_hico`` counts each image once."""
     prev = None
     for d, batch in batches_from_factory(factory, cfg.batch_size, cfg,
@@ -624,8 +626,9 @@ def _main(cfg: RunConfig, dev, multi):
         return metrics
 
     if cfg.eval or cfg.cache:
-        runs = eval_batches(make_eval_step(model_cfg, dev), params, buffers,
-                            test_factory, cfg)
+        # one CUDA graph per batch shape, as the JAX CLI jits the step
+        runs = eval_batches(graphed(make_eval_step(model_cfg, dev)), params,
+                            buffers, test_factory, cfg)
         # several processes score their rows and merge the ragged
         # per-image results (process 0 writes the files)
         gather = gather_pyobj if multi else None

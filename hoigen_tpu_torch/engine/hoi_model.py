@@ -24,6 +24,7 @@ from ..models.dino import dino_forward, init_dino_params
 from ..labels.vcoco import detr_reserve_indices
 from ..models.upt import UPTConfig, init_upt_params, language_aware_loss, \
     upt_forward
+from ..ops._weights import constant
 from ..ops.pixels import device_normalize, pad_mask_from_sizes
 from ..ops.resize import batch_resize_normalize
 from ..parallel.distributed import all_reduce
@@ -122,8 +123,8 @@ def _forward(params, buffers, batch, cfg: HOIModelConfig, training=False,
     if pred_logits.shape[-1] == 92:
         # COCO-pretrained V-COCO detector: gather the 91-slot logits down
         # to 80 real classes (person first) and no-object before the softmax
-        pred_logits = pred_logits[..., torch.as_tensor(
-            detr_reserve_indices(), device=pred_logits.device)]
+        pred_logits = pred_logits[..., constant(
+            tuple(detr_reserve_indices()), pred_logits.device, torch.long)]
     # postprocess at the CLIP-stream frame, as the reference does
     post = postprocess(pred_logits, detr_out["pred_boxes"].float(),
                        batch["clip_sizes"])

@@ -6,11 +6,16 @@ parameter tree holds (bf16 products, a reshaped 3x3 filter) asks
 as long as the source tensors live and are not changed in place (torch
 bumps a tensor's version counter on every in-place write), so the eval
 step does not recast its frozen weights at every launch.
+
+:func:`constant` does the same for small tables of numbers (normalisation
+statistics, gather indices): a step that reads one builds no tensor from
+host data, which a captured CUDA graph could not hold.
 """
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 _copies = WeakIdKeyDictionary()
+_constants = {}
 
 
 def prepared(tag, sources, make):
@@ -43,3 +48,24 @@ def cast(t, dtype):
     if t.dtype == dtype:
         return t
     return prepared(("cast", dtype), (t,), lambda: t.to(dtype))
+
+
+def copies_of(sources):
+    """Every copy cached under one of ``sources`` (a captured CUDA graph
+    keeps them alive, so that memory it reads is never handed out again
+    while it lives)."""
+    return [hit[2] for t in sources for hit in _copies.get(t, {}).values()]
+
+
+def constant(values, device, dtype=torch.float32):
+    """``values`` (a tuple of numbers) as a 1-D ``dtype`` tensor on
+    ``device``, made at the first call for that device and dtype and
+    shared after it: read it, never write it. Made outside inference mode,
+    so that autograd may save it."""
+    key = (values, torch.device(device), dtype)
+    t = _constants.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _constants[key] = torch.tensor(values, dtype=dtype,
+                                               device=device)
+    return t

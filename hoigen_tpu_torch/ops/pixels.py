@@ -6,6 +6,8 @@ rebuilds the ImageNet normalisation and the padding plane.
 import numpy as np
 import torch
 
+from ._weights import constant
+
 # torchvision ImageNet stats — both streams use them (reference parity)
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
@@ -20,8 +22,10 @@ def device_normalize(images, dtype=torch.float32, pad_mask=None):
     if images.is_floating_point():
         return images.to(dtype)
     x = images.float() / 255.0
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device).reshape(1, 3, 1, 1)
-    std = torch.as_tensor(IMAGENET_STD, device=x.device).reshape(1, 3, 1, 1)
+    mean = constant(tuple(IMAGENET_MEAN.tolist()), x.device).reshape(
+        1, 3, 1, 1)
+    std = constant(tuple(IMAGENET_STD.tolist()), x.device).reshape(
+        1, 3, 1, 1)
     x = (x - mean) / std
     if pad_mask is not None:
         x = torch.where(pad_mask[:, None, :, :], 0.0, x)

@@ -11,8 +11,10 @@ batch of crops is one pair of batched products.
 """
 import math
 
+import numpy as np
 import torch
 
+from ._weights import constant
 from .pixels import IMAGENET_MEAN, IMAGENET_STD
 
 _EPS = 1e-8
@@ -39,6 +41,9 @@ def resize_weights(in_size: int, out_size: int, window, win_lo=0.0,
     f32 = torch.float32
 
     def as_t(v):
+        if not isinstance(v, torch.Tensor) and np.ndim(v) == 0:
+            # a number is filled in on the device, not copied from the host
+            return torch.full((1, 1), float(v), dtype=f32, device=device)
         return torch.as_tensor(v, dtype=f32, device=device)[..., None, None]
 
     window = as_t(window)
@@ -90,10 +95,8 @@ def batch_resize_normalize(images_u8, sizes, resolution: int,
     if pil_rounding:
         out = _quant_u8(out)
     out = out / 255.0
-    mean = torch.as_tensor(mean, dtype=torch.float32,
-                           device=x.device).reshape(1, 3, 1, 1)
-    std = torch.as_tensor(std, dtype=torch.float32,
-                          device=x.device).reshape(1, 3, 1, 1)
+    mean, std = (constant(tuple(np.asarray(v, np.float32).tolist()),
+                          x.device).reshape(1, 3, 1, 1) for v in (mean, std))
     return ((out - mean) / std).to(dtype)
 
 

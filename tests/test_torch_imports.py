@@ -59,6 +59,7 @@ def test_port_imports_without_jax(modules):
             "hoigen_tpu_torch.engine.partition",
             "hoigen_tpu_torch.engine.checkpoint",
             "hoigen_tpu_torch.engine.train",
+            "hoigen_tpu_torch.engine.cuda_graph",
             "hoigen_tpu_torch.labels.vcoco",
             # host evaluation and the data pipeline
             "hoigen_tpu_torch.labels", "hoigen_tpu_torch.labels.hico",
