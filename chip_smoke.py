@@ -50,7 +50,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    classes, one generated pair per image, the fused cache and CLIP's fused
    attention on, dropout on) through ``Trainer`` with the counters set to
    0 just before it, and check the launches, the loss, that every frozen
-   tensor is unchanged and that the trained ones moved;
+   tensor is unchanged and that the trained ones moved; the step is
+   captured as one CUDA graph (``engine/cuda_graph.py::GraphedTrainStep``,
+   the counterpart of ``jax.jit(train_step, donate_argnums=(0, 1))``) and
+   replayed, and the counters include the replays;
+6b. on phase 6's configuration, the graphed training step against the
+   eager step, each from its own copy of the trainable weights and a fresh
+   optimizer, on the same batch and dropout seeds, within the spread of
+   two eager copies (losses, n_p, every trainable leaf, the moments and
+   the count, 2 + 20 steps across the learning-rate drop); both timed in
+   one window with their busy time, idle share and runtime calls (the
+   graphed step one graph launch and under 20 kernel launch calls a step);
+   the capture's seconds, the pool's bytes, the weight check's host time;
+   an in-place write to a trainable leaf, a ``Trainer.restore`` and a
+   params tree with a replaced tensor, one capture each; the frozen
+   tensors bit-identical; an eval step after graphed training against one
+   after eager training;
 7. run the HICO-DET evaluation from a dataset on disk to its mAP as the
    CLI runs it (``DataFactory`` -> ``eval_batches``, tail padded -> the
    graphed eval step of phase 5, one graph a bucket captured in the first
@@ -72,7 +87,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    just before it; check the launches, the losses, the AP vector and the
    .mat files, and time each run, its stages and the synthesis against
    its f32 bound; then V-COCO --eval at phase 4's small configuration on
-   the card and on the CPU, whose role APs must agree;
+   the card and on the CPU, whose role APs must agree; the training epoch
+   runs graphed, one graph a batch shape;
 9. run the generator pipeline through its CLIs at full width (ViT-B/16
    CLIP with its text tower, from a file written from ``--seed``) on 384
    small random JPEGs a partition, in a temporary working directory:
@@ -1737,9 +1753,10 @@ def small_train_check(seed):
 
 
 def train_path(model, batch, cfg, warmup, steps, seed):
-    """Phase 6b: the full-width training step through Trainer, counters
-    zeroed just before. Returns (launch counts K1, K4, K3, timed step times
-    in s, the per-step losses, the Trainer)."""
+    """Phase 6: the full-width training step through Trainer (graphed: the
+    first step warms up and captures, the rest replay), counters zeroed
+    just before. Returns (launch counts K1, K4, K3, timed step times in s,
+    the per-step losses, the Trainer)."""
     import torch
 
     from hoigen_tpu_torch.engine.hoi_model import make_optimizer, \
@@ -1765,6 +1782,280 @@ def train_path(model, batch, cfg, warmup, steps, seed):
         times.append(time.perf_counter() - t0)
     return ([fn.launches for fn in wrappers], times[warmup:], losses,
             trainer)
+
+
+def trainable_copy(params):
+    """``params`` with its ``upt`` subtree (every trainable leaf, and
+    CLIP) cloned, each clone requiring grad as its source does; DETR and
+    DINO, frozen, shared."""
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(clone(v) for v in tree)
+        return tree.detach().clone().requires_grad_(tree.requires_grad)
+    return dict(params, upt=clone(params["upt"]))
+
+
+def train_graph_phase(model, batch, cfg, args, card):
+    """Phase 6b: on phase 6's configuration, model and batch, the graphed
+    training step (``engine/cuda_graph.py::GraphedTrainStep``, as a
+    Trainer makes it) against the eager step, each on its own copy of the
+    trainable weights with a fresh optimizer (learning-rate drop at update
+    10), on the same batch and dropout seeds; a second eager copy gives the
+    spread of two eager runs, and graphed against eager must be bit for
+    bit where the two eager runs are, else within twice their difference:
+    losses, n_p, every trainable leaf, the moments and the count. In order: 2 +
+    ``args.train_steps`` steps across the drop; both steps timed in one
+    window (busy time, idle share, runtime calls: the graphed step one
+    ``cudaGraphLaunch`` and under 20 kernel launch calls); an in-place
+    write to a trainable leaf, a ``Trainer.restore`` from a checkpoint and
+    a params tree with a replaced tensor, each one new capture; the frozen
+    tensors bit-identical; an eval step (graphed, captured before the
+    training, and eager) on the graphed copy against the eager copy's.
+    Failures are gathered and end the run at the phase's end. -> record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.engine.checkpoint import save_checkpoint
+    from hoigen_tpu_torch.engine.cuda_graph import GraphedTrainStep, graphed
+    from hoigen_tpu_torch.engine.hoi_model import make_eval_step, \
+        make_optimizer, make_train_step
+    from hoigen_tpu_torch.engine.partition import trainable_leaves
+    from hoigen_tpu_torch.engine.train import Trainer
+
+    t6b = time.perf_counter()
+    params0, buffers = model
+    failures = []
+    runs = {}
+    for name in ("graphed", "eager", "eager2"):
+        params = trainable_copy(params0)
+        opt = make_optimizer(lr_drop_step=10)(params)
+        step = make_train_step(cfg, opt)
+        trainer = Trainer(step, opt, params, buffers,
+                          checkpoint_every_epoch=False)
+        runs[name] = {"params": params, "opt": opt, "trainer": trainer,
+                      "step": trainer.step_fn if name == "graphed" else step,
+                      "done": 0, "metrics": []}
+    gstep = runs["graphed"]["step"]
+    if not isinstance(gstep, GraphedTrainStep):
+        fail(f"phase 6b: Trainer's step is a {type(gstep).__name__}")
+    frozen = snapshot_frozen(runs["graphed"]["params"])
+
+    def run(name):
+        """One step of a copy, dropout from a generator seeded by its step
+        count, as a Trainer seeds it. -> (loss, n_p)."""
+        r = runs[name]
+        gen = torch.Generator(device="cuda").manual_seed(
+            args.seed * 1_000_003 + r["done"])
+        m = r["step"](r["params"], buffers, batch, gen)
+        r["done"] += 1
+        out = (float(m["loss"]), float(m["n_p"]))
+        r["metrics"].append(out)
+        return out
+
+    def gap(a, b):
+        """The largest difference of each kind between two copies: the
+        steps' losses and n_p since the last comparison (absolute), every
+        trainable leaf and moment (relative to the leaf's largest
+        magnitude), the count."""
+        ra, rb = runs[a], runs[b]
+        ma, mb = np.asarray(ra["metrics"]), np.asarray(rb["metrics"])
+        moments = [[t for g in r["opt"].param_groups
+                    for t in g["mu"] + g["nu"]] for r in (ra, rb)]
+        leaves = [[t.detach() for _, t in trainable_leaves(r["params"])]
+                  for r in (ra, rb)]
+
+        def rel(xs, ys):
+            return max(float((x - y).abs().max())
+                       / max(float(y.abs().max()), 1e-30)
+                       for x, y in zip(xs, ys))
+        return {"loss": float(np.abs(ma[:, 0] - mb[:, 0]).max()),
+                "n_p": float(np.abs(ma[:, 1] - mb[:, 1]).max()),
+                "leaves": rel(*leaves), "moments": rel(*moments),
+                "count": abs(ra["opt"].count - rb["opt"].count)}
+
+    def compare(what):
+        """Graphed against eager, bit for bit where the two eager copies
+        agree bit for bit, else within twice their difference (one draw
+        of a spread: a graphed copy that is one more eager-like run lands
+        beyond it about half the time)."""
+        ge, ee = gap("graphed", "eager"), gap("eager2", "eager")
+        steps = {n: r["done"] for n, r in runs.items()}
+        if len(set(steps.values())) != 1:
+            failures.append(f"{what}: steps {steps}")
+        for k, v in ge.items():
+            if not v <= 2 * ee[k]:
+                failures.append(f"{what}: graphed {k} differs from eager "
+                                f"by {v:.3e}, two eager runs by {ee[k]:.3e}")
+        log(f"phase 6b {what}: after {steps['graphed']} steps (count "
+            f"{runs['graphed']['opt'].count}), graphed against eager "
+            + ", ".join(f"{k} {v:.3e}" for k, v in ge.items())
+            + "; eager against eager "
+            + ", ".join(f"{k} {v:.3e}" for k, v in ee.items()))
+        for r in runs.values():
+            r["metrics"] = []
+        return {"graphed_vs_eager": ge, "eager_vs_eager": ee,
+                "steps": steps["graphed"],
+                "count": runs["graphed"]["opt"].count}
+
+    record = {"card": card, "lr_drop_step": 10}
+    n = 2 + args.train_steps
+    for name in runs:
+        for _ in range(n):
+            run(name)
+    if runs["graphed"]["opt"].count <= 10:
+        failures.append("the steps did not cross the learning-rate drop")
+    if not all(math.isfinite(x) and x > 1e-3 and n_p > 0
+               for x, n_p in runs["graphed"]["metrics"]):
+        failures.append(f"losses, n_p {runs['graphed']['metrics']}")
+    record["steps"] = compare(f"2 + {args.train_steps} steps across the "
+                              "learning-rate drop at update 10")
+
+    # both timed in one window, then profiled; the second eager copy takes
+    # the same steps untimed
+    def timed(name, k):
+        times = []
+        for _ in range(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(name)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    for name in ("eager", "graphed"):
+        times = timed(name, args.warmup + args.train_steps)[args.warmup:]
+        mean, median, q1, q3, rate = step_stats(times, args.batch)
+        log(f"phase 6b {name}: {len(times)} timed training steps after "
+            f"{args.warmup} warm-up: mean {mean:.3f} ms, median "
+            f"{median:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms; "
+            f"{rate:.2f} images/s at batch {args.batch} on {card}")
+        profiled = profile_steps(lambda name=name: run(name),
+                                 args.train_profile_steps)
+        busy = report_profile(f"phase 6b {name}", profiled,
+                              args.train_profile_steps, mean)
+        record[name] = {
+            "mean_ms": mean, "median_ms": median, "q1_ms": q1, "q3_ms": q3,
+            "images_per_s": rate, "device_busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / mean,
+            "runtime_calls_per_step": profiled[2]}
+    for _ in range(args.warmup + args.train_steps
+                   + args.train_profile_steps):
+        run("eager2")
+    runtime = record["graphed"]["runtime_calls_per_step"]
+    launch_calls = sum(v for k, v in runtime.items() if "LaunchKernel" in k)
+    if not launch_calls < 20 or runtime.get("cudaGraphLaunch") != 1:
+        failures.append(f"the graphed step makes {launch_calls:g} kernel "
+                        f"launch calls a step, runtime calls {runtime}")
+    record["timed"] = compare("the timed and profiled steps")
+
+    # changes between replays: each one new capture, then a replay
+    g = next(iter(gstep.graphs.values()))
+
+    def after(what, change):
+        captures = g.captures
+        change()
+        for name in runs:
+            run(name)
+            run(name)
+        if g.captures != captures + 1:
+            failures.append(f"{what}: {g.captures - captures} captures, "
+                            "expected 1")
+        record[what] = compare(what)
+
+    def write():
+        with torch.no_grad():
+            for r in runs.values():
+                r["params"]["upt"]["adapter_H_w"].mul_(1.25)
+
+    after("an in-place write to a trainable leaf", write)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_6b_")
+    path = save_checkpoint(ckpt_dir, 0, runs["graphed"]["trainer"].state())
+    saved_done = runs["graphed"]["done"]
+    for name in runs:
+        run(name)
+
+    def restore():
+        for r in runs.values():
+            r["trainer"].restore(path)
+            r["done"] = saved_done
+            r["metrics"] = []
+
+    after("a Trainer.restore from a checkpoint", restore)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def replace():
+        for r in runs.values():
+            visual = r["params"]["upt"]["clip"]["visual"]
+            r["params"] = dict(r["params"], upt=dict(
+                r["params"]["upt"], clip=dict(
+                    r["params"]["upt"]["clip"], visual=dict(
+                        visual, conv1_w=visual["conv1_w"].clone()))))
+
+    after("a params tree with a replaced tensor", replace)
+    changed = [p for p, t in snapshot_frozen(
+        runs["graphed"]["params"]).items() if not torch.equal(t, frozen[p])]
+    if changed:
+        failures.append(f"frozen tensors changed: {changed[:5]}")
+
+    # an eval step after graphed training sees the trained weights: an
+    # eval graph captured and the kernel-ready copies of the trainable
+    # weights made (both at the leaves' versions now), then two replays
+    # of the training graph, which write the leaves; the eval graph must
+    # capture again and the copies be made anew
+    eval_batch = {k: batch[k] for k in ("images", "image_sizes",
+                                        "clip_sizes")}
+    eval_graphed, eval_eager = graphed(make_eval_step(cfg)), \
+        make_eval_step(cfg)
+    for step in (eval_graphed, eval_eager):
+        step(runs["graphed"]["params"], buffers, eval_batch)
+    eval_captures = sum(r["captures"] for r in eval_graphed.records()
+                        .values())
+    for name in runs:
+        run(name)
+        run(name)
+    record["after_an_eval_step"] = compare("two replays after an eval step")
+    want = eval_eager(runs["eager"]["params"], buffers, eval_batch)
+    record["eval_after_training"] = {
+        "graphed": same_outputs(
+            "phase 6b: the graphed eval step on the graphed copy against "
+            "the eager eval step on the eager copy",
+            eval_graphed(runs["graphed"]["params"], buffers, eval_batch),
+            want),
+        "eager": same_outputs(
+            "phase 6b: the eager eval step on the graphed copy against "
+            "the same on the eager copy",
+            eval_eager(runs["graphed"]["params"], buffers, eval_batch),
+            want)}
+    if sum(r["captures"] for r in eval_graphed.records().values()) != \
+            eval_captures + 1:
+        failures.append("the eval graph did not capture again after the "
+                        "training")
+    if record["after_an_eval_step"]["graphed_vs_eager"]["leaves"] == 0 and \
+            any(v for d in record["eval_after_training"].values()
+                for v in d.values()):
+        failures.append("the eval outputs on equal weights differ: "
+                        f"{record['eval_after_training']}")
+
+    record["graphs"] = gstep.records()
+    record["check_us_per_call"] = 1e6 * gstep.check_s / gstep.checks
+    record["pool_bytes"] = sum(r["pool_bytes"] for r in
+                               record["graphs"].values())
+    for key, rec in record["graphs"].items():
+        log(f"phase 6b: graph {key}: {rec}")
+    log(f"phase 6b: the weight check's and the version bump's host time "
+        f"{record['check_us_per_call']:.1f} us a call (mean of "
+        f"{gstep.checks}, {len(g.leaves)} tensors); {len(frozen)} frozen "
+        f"tensors bit-identical; on {card}")
+    record["seconds"] = time.perf_counter() - t6b
+    log(f"phase 6b took {record['seconds']:.1f} s")
+    if failures:
+        fail("phase 6b: " + "; ".join(failures))
+    return record
 
 
 # ------------------------------------------------------- the CLI end to end
@@ -2015,6 +2306,7 @@ def cli_phase(args, card, work, ctx):
     import torch
 
     from hoigen_tpu_torch.cli import main_finetune as mf
+    from hoigen_tpu_torch.engine.cuda_graph import GraphedTrainStep
     from hoigen_tpu_torch.tools.make_checkpoints import write_checkpoints
     from hoigen_tpu_torch.tools.make_hicodet import write_hicodet
     from hoigen_tpu_torch.utils.config import parse_config
@@ -2079,7 +2371,15 @@ def cli_phase(args, card, work, ctx):
                         not os.path.isfile(os.path.join(
                             out, f"ckpt_{steps:08d}.pt")):
                     fail(f"cli train: {steps} steps, losses {losses}")
-                run.update(steps=steps, losses=losses)
+                # one process: the Trainer's step is graphed, one graph a
+                # batch shape, each step a capture or a replay
+                graphs = result.step_fn.records()
+                calls_g = sum(g["captures"] + g["replays"]
+                              for g in graphs.values())
+                if not isinstance(result.step_fn, GraphedTrainStep) or \
+                        calls_g != steps:
+                    fail(f"cli train: {steps} steps, graphs {graphs}")
+                run.update(steps=steps, losses=losses, graphs=graphs)
                 del result
             else:
                 # the test partition at batch args.batch, tail padded
@@ -2115,7 +2415,8 @@ def cli_phase(args, card, work, ctx):
                 f"({bound_s:.3f} s at {flops / 1e12:.1f} TFLOP) on {card}")
             if mode == "train":
                 log(f"cli train: {run['steps']} steps, losses "
-                    f"{', '.join(f'{x:.5f}' for x in run['losses'])}")
+                    f"{', '.join(f'{x:.5f}' for x in run['losses'])}; "
+                    f"graphed: {run['graphs']}")
             elif mode == "eval":
                 log(f"cli eval: mAP {run['mAP']:.6f}, unseen "
                     f"{run['mAP_unseen']:.6f} (random weights)")
@@ -2742,11 +3043,11 @@ class P11Probe:
             if probe.norms is None:
                 opt._fill_grads()
                 probe.norms = [float(opt._norm(g["params"]))
-                               for g in opt.opt.param_groups]
+                               for g in opt.param_groups]
             opt_step(opt)
             if probe.grads is None:
                 probe.grads = [t.grad.detach().cpu().numpy().copy()
-                               for g in opt.opt.param_groups
+                               for g in opt.param_groups
                                for t in g["params"]]
 
         def make_probed(cfg, device=None):
@@ -3888,6 +4189,12 @@ def main():
     log(f"train path: losses {losses[0]:.5f} -> {losses[-1]:.5f} over "
         f"{n_run} steps; {len(frozen)} frozen tensors bit-identical; "
         f"{', '.join(moved)} changed")
+    train_graphs = trainer.step_fn.records()
+    if [(r["captures"], r["replays"]) for r in train_graphs.values()] != \
+            [(1, n_run - 1)]:
+        fail(f"train path: graphs {train_graphs}")
+    log(f"train path: one graph, {n_run - 1} replays: "
+        f"{next(iter(train_graphs.values()))}")
     tmean, tmedian, tq1, tq3, timages = step_stats(ttimes, args.batch)
     tms = np.asarray(ttimes) * 1e3
     log(f"train path: training step over {len(tms)} timed steps after "
@@ -3901,6 +4208,9 @@ def main():
             args.train_profile_steps),
         args.train_profile_steps, tmean)
     log(f"phase 6 took {time.perf_counter() - t6:.1f} s")
+    # phase 6b: the graphed training step against the eager step
+    train_graph_run = train_graph_phase(train_model, train_batch, train_cfg,
+                                        args, card)
 
     # phase 7: the HICO-DET evaluation from disk
     eval_run = eval_from_disk_phase(model, cfg, args, card)
@@ -4006,7 +4316,8 @@ def main():
                            "q1_ms": tq1, "q3_ms": tq3,
                            "images_per_s": timages, "device_busy_ms": tbusy,
                            "first_loss": losses[0], "last_loss": losses[-1],
-                           "card": card},
+                           "graphs": train_graphs, "card": card},
+            "train_graph_run": train_graph_run,
             "eval_run": eval_run, "cli_run": cli,
             "generator_run": generator_run, "detr_finetune_run": detr_run,
             "parallel_run": parallel_run, "remainder_run": remainder_run}

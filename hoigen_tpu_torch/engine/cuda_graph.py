@@ -1,5 +1,7 @@
-"""The eval step as one captured CUDA graph per batch signature: the port's
-counterpart of ``jax.jit(make_eval_step(cfg))``.
+"""The eval and training steps as one captured CUDA graph per batch
+signature: the port's counterparts of ``jax.jit(make_eval_step(cfg))`` and
+of ``jax.jit(train_step, donate_argnums=(0, 1))``. This docstring tells the
+eval step's story; :class:`GraphedTrainStep` adds the training step's.
 
 ``jax.jit`` compiles the step into one XLA program per batch shape and
 launches it with one call. :func:`graphed` does the same on the card: at
@@ -59,6 +61,11 @@ def signature(batch):
                         for k, v in batch.items()))
 
 
+def signature_text(key):
+    """A signature as one line of text."""
+    return ", ".join(f"{k} {list(s)} {d}" for k, s, d in key)
+
+
 def tensor_leaves(tree, out=None):
     """The tensors of a nested dict/list/tuple, in a fixed order (run at
     every call: kept to one loop a container)."""
@@ -97,6 +104,8 @@ class _Graph:
         self.staging = {}
         self.copied = torch.cuda.Event()
         self.graph = self.static_out = None
+        # a training graph's own dropout generator (None: no dropout)
+        self.generator = None
         self.leaves, self.versions, self.held = [], [], []
         self.deltas = [0] * len(COUNTED)
         self.captures = self.replays = 0
@@ -124,9 +133,10 @@ class _Graph:
             dst.copy_(stage, non_blocking=True)
         self.copied.record()
 
-    def capture(self, step, params, buffers, leaves):
-        """Warm up and capture ``step`` on the static inputs. -> the
-        warm-up's outputs."""
+    def capture(self, warmup, record, pool=None, generator=None):
+        """Run ``warmup()`` eagerly on a side stream, then capture
+        ``record()`` (into ``pool`` where given, drawing from
+        ``generator`` where given). -> the warm-up's outputs."""
         torch.cuda.synchronize(self.device)
         # the previous capture (if any) read leaves that changed since
         self.graph = self.static_out = None
@@ -135,7 +145,7 @@ class _Graph:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            out = step(params, buffers, self.static_in)
+            out = warmup()
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
         self.warmup_s = time.perf_counter() - t0
@@ -144,9 +154,12 @@ class _Graph:
         reserved = torch.cuda.memory_reserved(self.device)
         counts = [fn.launches for fn in COUNTED]
         graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            static_out = step(params, buffers, self.static_in)
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            static_out = record()
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -155,19 +168,24 @@ class _Graph:
         for fn, n in zip(COUNTED, counts):
             fn.launches = n
         self.graph, self.static_out = graph, static_out
-        self.leaves = leaves
-        self.versions = [t._version for t in leaves]
-        self.held = _weights.copies_of(leaves)
         self.captures += 1
         return out
 
-    def replay(self):
-        """Replay on the current stream. -> copies of the outputs."""
+    def hold(self, leaves):
+        """Keep ``leaves`` (and their cached copies) as the tensors the
+        graph was captured against, with their versions now."""
+        self.leaves = leaves
+        self.versions = [t._version for t in leaves]
+        self.held = _weights.copies_of(leaves)
+
+    def replay(self, mode=torch.inference_mode):
+        """Replay on the current stream. -> copies of the outputs, made
+        under ``mode``."""
         self.graph.replay()
         for fn, n in zip(COUNTED, self.deltas):
             fn.launches += n
         self.replays += 1
-        with torch.inference_mode():
+        with mode():
             return {k: v.clone() for k, v in self.static_out.items()}
 
     def record(self):
@@ -204,16 +222,106 @@ class GraphedStep:
             g = self.graphs[key] = _Graph(batch, leaves[0].device)
         g.load(batch)
         if not fresh:
-            return g.capture(self.step, params, buffers, leaves)
+            def run():
+                return self.step(params, buffers, g.static_in)
+            out = g.capture(run, run)
+            g.hold(leaves)
+            return out
         return g.replay()
 
     def records(self):
         """{signature as text: that graph's record}."""
-        return {", ".join(f"{k} {list(s)} {d}" for k, s, d in key):
-                g.record() for key, g in self.graphs.items()}
+        return {signature_text(key): g.record()
+                for key, g in self.graphs.items()}
 
 
 def graphed(step):
     """``step`` (from ``make_eval_step``) captured once per batch
     signature and replayed: see the module docstring."""
     return GraphedStep(step)
+
+
+class GraphedTrainStep:
+    """``step(params, buffers, batch, generator=None)`` (from
+    ``make_train_step``, updating through ``optimizer``) captured per
+    batch signature and dropout on or off on the card, eager on the CPU:
+    the counterpart of ``jax.jit(train_step, donate_argnums=(0, 1))``.
+
+    The first call of a key runs the real step eagerly on a side stream
+    (it makes the gradients, the kernels' attributes and the cached weight
+    copies) and returns its metrics; the capture that follows records
+    ``zero_grad``, the forward, the backward, the clip and the update, and
+    changes no tensor. All keys' graphs share one memory pool: they replay
+    one at a time, and each call copies its metrics out. Beyond what
+    :class:`GraphedStep` keeps by hand:
+
+    - The optimizer's tensors. The moments, the count, the gradients and
+      the leaves it updates are checked with the parameters and buffers
+      (``GroupedAdamW.load_state_dict`` writes them in place: a new
+      capture), and a replay, which writes them on the card without
+      moving any version counter, bumps their versions after it, so that
+      ``ops/_weights.py::prepared`` and an eval graph see the update.
+    - Dropout. Each graph draws from a generator of its own, registered
+      with it at capture; before each replay it takes the caller's
+      generator's seed and offset, and the caller's generator then moves
+      on as the eager step would move it. A step without a generator runs
+      no dropout, another program, so it is another key.
+
+    ``check_s`` adds up the host time of the weight check before each
+    call and of the versions' bump after each replay."""
+
+    def __init__(self, step, optimizer):
+        self.step = step
+        self.optimizer = optimizer
+        self.graphs = {}
+        self.pool = None
+        self.check_s = 0.0
+        self.checks = 0
+
+    def _written(self):
+        return tensor_leaves(self.optimizer.state_tensors())
+
+    def __call__(self, params, buffers, batch, generator=None):
+        t0 = time.perf_counter()
+        leaves = tensor_leaves((params, buffers))
+        if not on_card(leaves):
+            return self.step(params, buffers, batch, generator)
+        leaves += self._written()
+        key = (signature(batch), generator is not None)
+        g = self.graphs.get(key)
+        fresh = g is not None and g.graph is not None and unchanged(
+            leaves, g.leaves, g.versions)
+        self.check_s += time.perf_counter() - t0
+        self.checks += 1
+        if g is None:
+            g = self.graphs[key] = _Graph(batch, leaves[0].device)
+            if generator is not None:
+                g.generator = torch.Generator(device=g.device)
+        g.load(batch)
+        if not fresh:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            out = g.capture(
+                lambda: self.step(params, buffers, g.static_in, generator),
+                lambda: self.step(params, buffers, g.static_in, g.generator),
+                pool=self.pool, generator=g.generator)
+            # the warm-up made the gradients: the leaves as they are now
+            g.hold(tensor_leaves((params, buffers)) + self._written())
+            return out
+        if generator is not None:
+            g.generator.set_state(generator.get_state())
+        out = g.replay(torch.no_grad)
+        t0 = time.perf_counter()
+        if generator is not None:
+            generator.set_state(g.generator.get_state())
+        torch.autograd.graph.increment_version(self._written())
+        g.versions = [t._version for t in g.leaves]
+        self.check_s += time.perf_counter() - t0
+        return out
+
+    def records(self):
+        """{signature as text, with or without dropout: that graph's
+        record}."""
+        return {signature_text(key) + (", dropout" if drop else ""):
+                g.record() for (key, drop), g in self.graphs.items()}
+

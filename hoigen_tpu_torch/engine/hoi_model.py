@@ -169,18 +169,26 @@ class GroupedAdamW:
     ``engine/partition.py::lr_group``: 'vit' for CLIP, 'head' for the
     rest).
 
-    As optax: the clip scales a group by max_norm / norm only where its
-    norm is not below max_norm (``torch.nn.utils.clip_grad_norm_`` would
-    add 1e-6 to the norm and scale always); every leaf of a group is
-    updated and decayed, a leaf that got no gradient as if its gradient
-    were zero. The Adam update itself is ``torch.optim.AdamW``'s, the same
-    formula as optax's (b1 0.9, b2 0.999, eps 1e-8) with another rounding
-    order.
+    The update is optax's, in its order, as ``torch._foreach_*`` ops over
+    a group's leaves: the clip scales a group to ``t / norm * max_norm``
+    only where its norm is not below max_norm; then mu and nu (b1 0.9, b2
+    0.999), their bias corrections at the incremented count, mu_hat /
+    (sqrt(nu_hat) + 1e-8), the decayed weights added, the sum scaled by
+    -lr and added to the leaf. Every leaf of a group is updated and
+    decayed, a leaf that got no gradient as if its gradient were zero.
+
+    The state lives on the leaves' device: the moments, made at
+    construction, and the update count (optax's ``count``), from which the
+    learning-rate drop is selected on the device. A step reads nothing
+    back to the host, so the same code runs eagerly and inside a captured
+    CUDA graph (``engine/cuda_graph.py``).
 
     ``mesh``: with a model axis above 1, the cache-row leaves hold this
     rank's slice (``parallel/mesh.py::shard_cache_rows``), and a group's
     norm adds their squared norms over the model group, so that every
     rank clips by the unsharded norm."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, named_params, base_lr, group=lr_group,
                  weight_decay=1e-4, lr_drop_step: Optional[int] = None,
@@ -192,25 +200,40 @@ class GroupedAdamW:
         self.row_group = mesh.row_group if mesh is not None else None
         self.sharded = {id(t) for path, t in named_params
                         if is_cache_row_leaf(path)}
-        self.base_lr = dict(base_lr)
         self.lr_drop_step = lr_drop_step
         self.max_norm = max_norm
-        self.count = 0
-        self.opt = torch.optim.AdamW(
-            [{"params": ts, "lr": self.base_lr[name], "name": name}
-             for name, ts in groups.items() if ts],
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+        self.weight_decay = weight_decay
+        with torch.no_grad():
+            self.param_groups = [
+                {"name": name, "lr": base_lr[name], "params": ts,
+                 "mu": [torch.zeros_like(t) for t in ts],
+                 "nu": [torch.zeros_like(t) for t in ts]}
+                for name, ts in groups.items() if ts]
+        device = named_params[0][1].device if named_params else "cpu"
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
 
-    def _lr(self, name):
-        drop = self.lr_drop_step is not None and self.count >= \
-            self.lr_drop_step
-        return self.base_lr[name] * (0.1 if drop else 1.0)
+    @property
+    def count(self) -> int:
+        """Updates made so far (reading it waits for the card)."""
+        return int(self._count)
+
+    def state_tensors(self):
+        """Every tensor a step writes: the leaves, their gradients (None
+        where none was made yet), the moments and the count."""
+        return ([t for g in self.param_groups for t in g["params"]]
+                + [t.grad for g in self.param_groups for t in g["params"]]
+                + [t for g in self.param_groups for t in g["mu"] + g["nu"]]
+                + [self._count])
 
     def zero_grad(self):
-        self.opt.zero_grad(set_to_none=False)
+        """Zero the gradients in place, keeping their storage."""
+        grads = [t.grad for g in self.param_groups for t in g["params"]
+                 if t.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
 
     def _fill_grads(self):
-        for group in self.opt.param_groups:
+        for group in self.param_groups:
             for t in group["params"]:
                 if t.grad is None:
                     t.grad = torch.zeros_like(t)
@@ -220,7 +243,7 @@ class GroupedAdamW:
         """SUM every gradient over ``group`` (the data axis), in one
         flat buffer; a leaf that got none counts as zero."""
         self._fill_grads()
-        grads = [t.grad for g in self.opt.param_groups for t in g["params"]]
+        grads = [t.grad for g in self.param_groups for t in g["params"]]
         flat = all_reduce(torch._utils._flatten_dense_tensors(grads), group)
         for g, r in zip(grads, torch._utils._unflatten_dense_tensors(
                 flat, grads)):
@@ -238,25 +261,70 @@ class GroupedAdamW:
                           self.row_group)
         return torch.sqrt(torch.where(sharded, 0.0, sq).sum() + rows)
 
+    def _step_size(self, lr):
+        """-lr of this update: piecewise_constant_schedule at the count
+        before it, selected on the device."""
+        if self.lr_drop_step is None:
+            return -lr
+        return torch.where(self._count >= self.lr_drop_step, -0.1 * lr, -lr)
+
     @torch.no_grad()
     def step(self):
         self._fill_grads()
-        for group in self.opt.param_groups:
-            grads = [t.grad for t in group["params"]]
-            norm = self._norm(group["params"])
-            # no host synchronisation: the scale stays on the device
-            torch._foreach_mul_(grads, torch.where(
-                norm < self.max_norm, 1.0, self.max_norm / norm))
-            group["lr"] = self._lr(group["name"])
-        self.opt.step()
-        self.count += 1
+        b1, b2 = self.B1, self.B2
+        # optax's bias corrections at the incremented count
+        t = (self._count + 1).double()
+        bc1 = (1.0 - torch.pow(b1, t)).float()
+        bc2 = (1.0 - torch.pow(b2, t)).float()
+        for group in self.param_groups:
+            params, mu, nu = group["params"], group["mu"], group["nu"]
+            grads = [p.grad for p in params]
+            norm = self._norm(params)
+            keep = norm < self.max_norm
+            torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+            torch._foreach_mul_(grads, torch.where(keep, 1.0, self.max_norm))
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+            update = torch._foreach_div(mu, bc1)
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.EPS)
+            torch._foreach_div_(update, denom)
+            torch._foreach_add_(update, params, alpha=self.weight_decay)
+            torch._foreach_mul_(update, self._step_size(group["lr"]))
+            torch._foreach_add_(params, update)
+        self._count.add_(1)
 
     def state_dict(self):
-        return {"adamw": self.opt.state_dict(), "count": self.count}
+        """{"mu": [...], "nu": [...], "count": int}, the moments in the
+        order of the groups' leaves."""
+        return {"mu": [t for g in self.param_groups for t in g["mu"]],
+                "nu": [t for g in self.param_groups for t in g["nu"]],
+                "count": self.count}
 
+    @torch.no_grad()
     def load_state_dict(self, state):
-        self.opt.load_state_dict(state["adamw"])
-        self.count = int(state["count"])
+        """Copy a :meth:`state_dict` into the state in place. Also reads
+        the layout of earlier checkpoints, ``{"adamw":
+        torch.optim.AdamW.state_dict(), "count": int}``, whose per-leaf
+        state is numbered in the same order (a leaf without one never
+        had a step)."""
+        mine = self.state_dict()
+        if "adamw" in state:
+            saved = state["adamw"]["state"]
+            state = dict(state, **{
+                key: [saved[i][name] if i in saved else torch.zeros_like(t)
+                      for i, t in enumerate(mine[key])]
+                for key, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))})
+        for key in ("mu", "nu"):
+            if len(state[key]) != len(mine[key]):
+                raise ValueError(f"optimizer state of {len(state[key])} "
+                                 f"leaves where {len(mine[key])} are held")
+            for t, s in zip(mine[key], state[key]):
+                t.copy_(s)
+        self._count.fill_(int(state["count"]))
 
 
 def make_optimizer(lr_vit=1e-3, lr_head=1e-3, weight_decay=1e-4,
@@ -309,7 +377,9 @@ def make_train_step(cfg: HOIModelConfig, optimizer, device=None, mesh=None):
     ``mesh``: a data-parallel step over its data axis (each rank's batch
     its rows of the global batch; the gradients summed over the axis
     after the backward, the loss reported the global one) with the cache
-    rows sharded over its model axis where it has one."""
+    rows sharded over its model axis where it has one. The step keeps
+    ``mesh`` as its attribute (``engine/train.py::Trainer`` captures a
+    step without one as a CUDA graph)."""
     dev = resolve_device(device)
     group = mesh.data_group if mesh is not None else None
 
@@ -327,6 +397,7 @@ def make_train_step(cfg: HOIModelConfig, optimizer, device=None, mesh=None):
             optimizer.step()
         return {"loss": loss, "n_p": aux["n_p"].detach()}
 
+    step.mesh = mesh
     return step
 
 

@@ -10,6 +10,7 @@ import torch
 
 from ..parallel.distributed import barrier, is_primary
 from .checkpoint import restore_checkpoint, save_checkpoint
+from .cuda_graph import GraphedTrainStep
 from .partition import trainable_leaves
 
 
@@ -36,12 +37,19 @@ class Trainer:
     updates ``params`` in place. ``data_rank``: this process's index on the
     data axis of a data-parallel run, which seeds its dropout apart from
     the other ranks'. In a multi-process run process 0 writes the
-    checkpoints and every process waits for it."""
+    checkpoints and every process waits for it.
+
+    On the card the step runs as one CUDA graph per batch signature
+    (``engine/cuda_graph.py::GraphedTrainStep``), as the JAX Trainer jits
+    it; on the CPU it runs eagerly. A step over a mesh (its ``mesh``
+    attribute, from ``make_train_step``) stays eager: its collectives go
+    through host copies inside the step, which no graph can hold."""
 
     def __init__(self, train_step: Callable, optimizer, params, buffers,
                  print_interval: int = 500, output_dir: Optional[str] = None,
                  checkpoint_every_epoch: bool = True, data_rank: int = 0):
-        self.step_fn = train_step
+        self.step_fn = train_step if getattr(train_step, "mesh", None) \
+            is not None else GraphedTrainStep(train_step, optimizer)
         self.optimizer = optimizer
         self.params = params
         self.buffers = buffers

@@ -16,12 +16,10 @@ capture, replay, recapture and launch-count bookkeeping.
 """
 import contextlib
 import dataclasses
-import traceback
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from hoigen_tpu_torch.engine import cuda_graph as cg
 from hoigen_tpu_torch.engine import hoi_model as thm
@@ -31,35 +29,8 @@ from hoigen_tpu_torch.ops import _weights
 from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
 from hoigen_tpu_torch.ops.pixels import IMAGENET_MEAN, IMAGENET_STD
 
-from torch_port_common import DETR_HW, DETR_KW, eval_configs
-
-# ops that read a device value on the host, or whose output shape does
-FORBIDDEN = {"aten.lift_fresh.default", "aten._local_scalar_dense.default",
-             "aten.nonzero.default", "aten.masked_select.default",
-             "aten._unique2.default", "aten.repeat_interleave.Tensor"}
-
-
-class UnsafeOps(TorchDispatchMode):
-    """Records (op, the innermost port frame) of every op a graph could
-    not hold."""
-
-    def __init__(self):
-        super().__init__()
-        self.found = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func)
-        bool_index = func.overloadpacket.__name__ in (
-            "index", "index_put", "index_put_") and any(
-            isinstance(i, torch.Tensor) and i.dtype == torch.bool
-            for i in (args[1] or ()))
-        if name in FORBIDDEN or bool_index:
-            sites = [f"{f.filename.split('hoigen_tpu_torch')[-1]}:{f.lineno}"
-                     for f in traceback.extract_stack()
-                     if "hoigen_tpu_torch" in f.filename]
-            self.found.append((name, sites[-1] if sites else "?"))
-        return func(*args, **(kwargs or {}))
-
+from torch_port_common import DETR_HW, DETR_KW, UnsafeOps, eval_configs, \
+    stand_in_cuda
 
 def _model(tcfg, num_objects=10, seed=0):
     params, buffers = thm.init_hoi_model(
@@ -156,26 +127,10 @@ class _Launches:
         self.captured = 0
 
     @contextlib.contextmanager
-    def graph(self, g, capture_error_mode=None):
+    def graph(self, g, pool=None, capture_error_mode=None):
         self.captured += 1
         fused_cache_logits.launches += 3
         yield
-
-
-class _Stream:
-    def __init__(self, *args):
-        pass
-
-    def wait_stream(self, other):
-        pass
-
-
-class _Event:
-    def record(self):
-        pass
-
-    def synchronize(self):
-        pass
 
 
 class _Graph:
@@ -185,19 +140,7 @@ class _Graph:
 
 def test_capture_replay_and_recapture_bookkeeping(monkeypatch):
     fake = _Launches()
-    empty = torch.empty
-    for name, value in (
-            ("graph", fake.graph), ("CUDAGraph", _Graph),
-            ("Stream", _Stream), ("Event", _Event),
-            ("stream", lambda s: contextlib.nullcontext()),
-            ("current_stream", lambda device=None: _Stream()),
-            ("synchronize", lambda device=None: None),
-            ("empty_cache", lambda: None),
-            ("memory_reserved", lambda device=None: 0)):
-        monkeypatch.setattr(torch.cuda, name, value)
-    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k:
-                        empty(*a, **k))
-    monkeypatch.setattr(cg, "on_card", lambda leaves: True)
+    stand_in_cuda(monkeypatch, fake.graph, _Graph)
     monkeypatch.setattr(fused_cache_logits, "launches", 0)
 
     _, tcfg = eval_configs()

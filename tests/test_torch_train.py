@@ -359,6 +359,57 @@ def test_optimizer_matches_optax():
     assert topt.count == 4
 
 
+def test_optimizer_state_round_trips_and_reads_the_torch_optim_layout(
+        tmp_path):
+    """GroupedAdamW's state through a checkpoint file: its own layout
+    (moments in the groups' leaf order, the count), and the layout of
+    checkpoints written while it ran ``torch.optim.AdamW`` (``{"adamw":
+    AdamW.state_dict(), "count": int}``, per-leaf state numbered in the
+    same order, none for a leaf that never had a gradient): every moment
+    and the count are read exactly, a stateless leaf's as zeros."""
+    rng = np.random.default_rng(3)
+    params = {"upt": {"clip": {"visual": {
+        "proj": torch.as_tensor(rng.normal(size=(4, 3)), dtype=torch.float32),
+        "adapter": torch.as_tensor(rng.normal(size=(5,)),
+                                   dtype=torch.float32)}},
+        "text_w": torch.as_tensor(rng.normal(size=(2, 3)),
+                                  dtype=torch.float32)}}
+    for _, t in partition.named_leaves(params):
+        t.requires_grad_(True)
+    leaves = [t for g in thm.make_optimizer()(params).param_groups
+              for t in g["params"]]
+    adamw = torch.optim.AdamW(
+        [{"params": leaves[:2], "lr": 1e-3}, {"params": leaves[2:]}],
+        betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    for _ in range(2):
+        for t in leaves:
+            t.grad = None if t.shape == (5,) else torch.as_tensor(
+                rng.normal(size=t.shape), dtype=torch.float32)
+        adamw.step()
+    old = restore_checkpoint(save_checkpoint(
+        tmp_path / "old", 2, {"adamw": adamw.state_dict(), "count": 2}))
+    opt = thm.make_optimizer()(params)
+    opt.load_state_dict(old)
+    assert opt.count == 2
+    mus = [t for g in opt.param_groups for t in g["mu"]]
+    nus = [t for g in opt.param_groups for t in g["nu"]]
+    for i, t in enumerate(leaves):
+        if t.shape == (5,):
+            assert not mus[i].any() and not nus[i].any()
+            continue
+        assert torch.equal(mus[i], adamw.state[t]["exp_avg"]), i
+        assert torch.equal(nus[i], adamw.state[t]["exp_avg_sq"]), i
+
+    opt.step()
+    again = thm.make_optimizer()(params)
+    again.load_state_dict(restore_checkpoint(save_checkpoint(
+        tmp_path / "new", 3, opt.state_dict())))
+    assert again.count == 3
+    for a, b in zip(again.state_dict()["mu"] + again.state_dict()["nu"],
+                    opt.state_dict()["mu"] + opt.state_dict()["nu"]):
+        assert torch.equal(a, b) and a is not b
+
+
 # ---------------------------------------------------- trainer and resume
 def test_trainer_resume_is_bit_identical(jax_model, tmp_path):
     """Two epochs with a checkpoint each, then a third: a fresh Trainer
