@@ -66,6 +66,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    params tree with a replaced tensor, one capture each; the frozen
    tensors bit-identical; an eval step after graphed training against one
    after eager training;
+6c. on phase 6's configuration with the language-aware term on, in an
+   NCCL process group of one, the training step over a mesh graphed with
+   its collectives inside (``Trainer`` graphs a mesh step whose groups
+   are NCCL), on the (1, 1) mesh of ``make_mesh()`` and on a (1, 2)
+   stand-in whose one rank holds every cache row (every model-axis
+   collective through NCCL, the one-process function): the graphed step
+   against the eager mesh step over 2 + 20 steps, bit for bit
+   (``tools/mesh_graph_check.py::mesh_run``); the (1, 1) mesh bit for
+   bit the one-process graphed step of phase 6b, and the stand-in bit
+   for bit a witness, the one-process step whose optimizer sums its norm
+   in the stand-in's order; both timed in one window (the graphed step
+   one graph launch, under 20 kernel launch calls and no c10d or NCCL
+   host call a step), the capture's seconds and the pool's bytes (a
+   group of one launches no NCCL kernel);
+6d. only where two cards or more are visible (the script needs one):
+   ``tools/mesh_graph_check.py`` over them, the (N, 1) and (N/2, 2)
+   meshes graphed against eager at a rank's batch of 8, with NCCL
+   kernels in the replay and their device time;
 7. run the HICO-DET evaluation from a dataset on disk to its mAP as the
    CLI runs it (``DataFactory`` -> ``eval_batches``, tail padded -> the
    graphed eval step of phase 5, one graph a bucket captured in the first
@@ -109,8 +127,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the steps and the dump;
 11. parallelism on one card, at phase 8's flags on phase 7's tree with
    dropout off: the CLI's training epoch and --eval in a NCCL process
-   group of one against the same runs without one (bit for bit), and
-   ``--devices 2`` refused; then two processes on ``cuda:0`` over gloo:
+   group of one against the same runs without one (bit for bit; the
+   training graphed over the group's mesh, one capture a batch shape),
+   and ``--devices 2`` refused; then two processes on ``cuda:0`` over
+   gloo, whose training steps stay eager:
    the training epoch, --eval and --cache against one process (the
    first update's clipped gradients, the merged AP vector within rtol
    1e-6, the .mat files' rows equal in count and sums, and rank 0's first
@@ -1784,19 +1804,6 @@ def train_path(model, batch, cfg, warmup, steps, seed):
             trainer)
 
 
-def trainable_copy(params):
-    """``params`` with its ``upt`` subtree (every trainable leaf, and
-    CLIP) cloned, each clone requiring grad as its source does; DETR and
-    DINO, frozen, shared."""
-    def clone(tree):
-        if isinstance(tree, dict):
-            return {k: clone(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(clone(v) for v in tree)
-        return tree.detach().clone().requires_grad_(tree.requires_grad)
-    return dict(params, upt=clone(params["upt"]))
-
-
 def train_graph_phase(model, batch, cfg, args, card):
     """Phase 6b: on phase 6's configuration, model and batch, the graphed
     training step (``engine/cuda_graph.py::GraphedTrainStep``, as a
@@ -1826,6 +1833,7 @@ def train_graph_phase(model, batch, cfg, args, card):
         make_optimizer, make_train_step
     from hoigen_tpu_torch.engine.partition import trainable_leaves
     from hoigen_tpu_torch.engine.train import Trainer
+    from hoigen_tpu_torch.tools.mesh_graph_check import trainable_copy
 
     t6b = time.perf_counter()
     params0, buffers = model
@@ -2055,6 +2063,170 @@ def train_graph_phase(model, batch, cfg, args, card):
     log(f"phase 6b took {record['seconds']:.1f} s")
     if failures:
         fail("phase 6b: " + "; ".join(failures))
+    return record
+
+
+def mesh_graph_phase(model, batch, cfg, args, card):
+    """Phase 6c: the training step over a mesh, graphed with its NCCL
+    collectives inside (``engine/cuda_graph.py::GraphedTrainStep``, which
+    ``Trainer`` takes for a mesh whose groups are NCCL: the counterpart of
+    the JAX package's jitted SPMD step), on phase 6's model and batch with
+    the language-aware term on, in an NCCL process group of one on
+    ``cuda:0``. Two meshes: ``make_mesh()``, the (1, 1) mesh whose data
+    group is the group of one, and ``Mesh(1, 2, 0, 0, g, g)`` over the
+    unsharded caches, a harness and not a mesh kind of its own: a model
+    axis of 2 whose one rank holds every cache row, so that every
+    model-axis collective (the partial logits and their gradient, the
+    optimizer's row norm) runs through NCCL while the function stays the
+    one-process step's. Each mesh goes through
+    ``hoigen_tpu_torch/tools/mesh_graph_check.py::mesh_run`` with
+    2 + ``args.train_steps`` steps (the checks and timings it states: the
+    graphed step against the eager mesh step bit for bit, the launches of
+    K1, K4 and K3, one window's timing and profile, one
+    ``cudaGraphLaunch``, under 20 kernel launch calls and no c10d or NCCL
+    host call a graphed step, the NCCL kernels, the capture's seconds and
+    the pool's bytes). Then, after the first update and after the steps,
+    bit for bit: the (1, 1) mesh against the one-process graphed step of
+    phase 6b made the same way, and the stand-in against a witness, the
+    one-process graphed step whose optimizer sums its norm over the
+    stand-in's row group (the cache rows' squares apart from the rest's:
+    another f32 order than one process's, and the only one); the
+    witness's first loss and n_p bit for bit one process's, its later gap
+    to one process logged. In a group of one NCCL launches no kernel, so
+    the NCCL kernels' device time is read only across cards (phase 6d).
+    Failures are gathered and end the run at the phase's end. ->
+    record."""
+    import torch
+    import torch.distributed as dist
+
+    from hoigen_tpu_torch.parallel import Mesh, capturable, \
+        init_distributed, make_mesh
+    from hoigen_tpu_torch.parallel.distributed import free_port
+    from hoigen_tpu_torch.tools import mesh_graph_check as mgc
+
+    t6c = time.perf_counter()
+    device = batch["images"].device
+    cfg = dataclasses.replace(cfg, upt=dataclasses.replace(cfg.upt, LA=True))
+    failures = []
+    record = {"card": card, "lr_drop_step": mgc.LR_DROP,
+              "language_aware": True}
+    n = 2 + args.train_steps
+
+    def held(what, got, want, keys=None):
+        """Fail unless ``got`` is ``want`` bit for bit in ``keys`` (None:
+        every kind of :func:`mgc.gap`). -> the gaps."""
+        d = mgc.gap(got, want)
+        bad = {k: v for k, v in d.items()
+               if (keys is None or k in keys) and not v <= 0}
+        if bad:
+            failures.append(f"{what}: differs by {bad}")
+        log(f"phase 6c {what}: " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in d.items()))
+        return d
+
+    def one_process(norm_mesh=None):
+        """The one-process graphed step over 2 + train_steps steps, its
+        norm over ``norm_mesh``'s row group. -> (state after the first
+        update, after the steps)."""
+        r = mgc.new_run(cfg, model, device, norm_mesh=norm_mesh)
+        mgc.step_once(r, batch, args.seed)
+        first = mgc.state(r)
+        while r["done"] < n:
+            mgc.step_once(r, batch, args.seed)
+        return first, mgc.state(r)
+
+    ref = one_process()
+    if not (ref[1]["count"] > mgc.LR_DROP and all(
+            math.isfinite(x) and x > 1e-3 and n_p > 0
+            for x, n_p in ref[1]["metrics"])):
+        failures.append(f"one process: count {ref[1]['count']}, losses, "
+                        f"n_p {ref[1]['metrics'].tolist()}")
+    torch.cuda.empty_cache()
+
+    init_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail(f"phase 6c: backend {dist.get_backend()}")
+        mesh11 = make_mesh()
+        g = mesh11.data_group
+        standin = Mesh(1, 2, 0, 0, data_group=g, model_group=g)
+        witness = one_process(norm_mesh=standin)
+        torch.cuda.empty_cache()
+        held("the witness against one process, the first step's loss "
+             "and n_p", witness[0], ref[0], keys=("loss", "n_p"))
+        record["witness_vs_one_process"] = held(
+            f"the witness against one process after {n} steps (logged)",
+            witness[1], ref[1], keys=())
+        for name, mesh, want, against in (
+                ("(1, 1)", mesh11, ref, "one process"),
+                ("(1, 2) stand-in", standin, witness, "the witness")):
+            if not capturable(mesh):
+                failures.append(f"{name}: not capturable")
+            rec, fails, states = mgc.mesh_run(
+                mesh, model, batch, cfg, device, steps=args.train_steps,
+                seed=args.seed)
+            record[name] = rec
+            failures += [f"{name}: {f}" for f in fails]
+            for what in ("graphed_vs_eager", "timed_graphed_vs_eager"):
+                log(f"phase 6c {name} {what}: " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in rec[what].items()))
+            rec["first_vs_reference"] = held(
+                f"{name}: graphed against {against} after the first "
+                "update", states["first"], want[0])
+            rec["steps_vs_reference"] = held(
+                f"{name}: graphed against {against} after {n} steps",
+                states["steps"], want[1])
+            rec["steps_vs_one_process"] = mgc.gap(states["steps"], ref[1])
+            for which in ("eager", "graphed"):
+                t = rec[which]
+                log(f"phase 6c {name} {which}: {args.train_steps} timed "
+                    f"steps after {mgc.WARMUP} warm-up: mean "
+                    f"{t['mean_ms']:.3f} ms, median {t['median_ms']:.3f} ms,"
+                    f" quartiles {t['q1_ms']:.3f} / {t['q3_ms']:.3f} ms; "
+                    f"{t['images_per_s']:.2f} images/s at batch "
+                    f"{rec['images']}; busy {t['busy_ms']} ms, idle share "
+                    f"{t['idle_share']}; runtime calls a step "
+                    f"{t['runtime_calls']}; NCCL kernels a step "
+                    f"{t['nccl_kernels'] or 'none'} "
+                    f"({t['nccl_device_ms']:.4f} ms), c10d and NCCL host "
+                    f"calls a step {t['nccl_host_calls'] or 'none'} on "
+                    f"{card}")
+            log(f"phase 6c {name}: launches {rec['launches']} over {n} "
+                f"steps; graphs {rec['graphs']}; capture "
+                f"{rec['capture_s']:.3f} s, pool {rec['pool_bytes']} B")
+            del states
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    record["seconds"] = time.perf_counter() - t6c
+    log(f"phase 6c took {record['seconds']:.1f} s")
+    if failures:
+        fail("phase 6c: " + "; ".join(failures))
+    return record
+
+
+def multi_card_phase(card):
+    """Phase 6d, on a machine with two cards or more only (the script
+    needs one): ``hoigen_tpu_torch/tools/mesh_graph_check.py`` over the
+    largest even number of cards, the (N, 1) and (N/2, 2) meshes graphed
+    against eager, with the NCCL kernels in the replay that a group of
+    one cannot show. Fails unless the tool exits 0. -> its record."""
+    import torch
+    cards = torch.cuda.device_count() // 2 * 2
+    t6d = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hoigen_tpu_torch.tools.mesh_graph_check",
+         "--cards", str(cards)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"phase 6d: {line}")
+    if proc.returncode or not lines:
+        fail(f"phase 6d: mesh_graph_check over {cards} cards exited "
+             f"{proc.returncode}: {proc.stderr[-4000:]}")
+    record = json.loads(lines[-1])
+    log(f"phase 6d took {time.perf_counter() - t6d:.1f} s on {cards} x "
+        f"{card}")
     return record
 
 
@@ -3042,7 +3214,7 @@ class P11Probe:
         def step(opt):
             if probe.norms is None:
                 opt._fill_grads()
-                probe.norms = [float(opt._norm(g["params"]))
+                probe.norms = [float(opt._norm(g))
                                for g in opt.param_groups]
             opt_step(opt)
             if probe.grads is None:
@@ -3106,7 +3278,9 @@ def p11_cli_runs(mf, argv, out, cache_out, modes, wrappers, resume=None,
                 mf, argv + extra[mode], wrappers)
         run = {"seconds": seconds, "launches": counts, "stages_s": stage_s}
         if mode == "train":
-            run.update(steps=result.iteration, losses=list(result._losses))
+            run.update(steps=result.iteration, losses=list(result._losses),
+                       graphs=result.step_fn.records()
+                       if hasattr(result.step_fn, "records") else {})
         elif mode == "eval":
             run.update(ap=np.asarray(result["ap"], np.float64).tolist(),
                        mAP=result["mAP"])
@@ -3469,6 +3643,14 @@ def parallel_phase(args, card, work, ctx):
                 ref[k]["launches"]:
             fail(f"phase 11a: NCCL world 1 {k} {key} differ from one "
                  f"process's")
+    # the CLI's training over the NCCL group's mesh runs graphed, as one
+    # process's does: one capture a batch shape, the other steps replays
+    graphs = {k: (g["captures"], g["replays"])
+              for k, g in nccl["train"]["graphs"].items()}
+    if not graphs or sum(c + r for c, r in graphs.values()) != \
+            nccl["train"]["steps"]:
+        fail(f"phase 11a: NCCL world 1 training graphs {graphs} over "
+             f"{nccl['train']['steps']} steps")
     record.update(one_process=ref, nccl_world_1=nccl, one_process_f32=ref32)
     log(f"parallel: NCCL at world size 1: losses "
         f"{', '.join(f'{x:.6f}' for x in nccl['train']['losses'])} and the "
@@ -3476,7 +3658,8 @@ def parallel_phase(args, card, work, ctx):
         f"the run without a process group ok; train "
         f"{nccl['train']['seconds']:.2f} s, eval {nccl['eval']['seconds']:.2f}"
         f" s (one process: {ref['train']['seconds']:.2f} s, "
-        f"{ref['eval']['seconds']:.2f} s)")
+        f"{ref['eval']['seconds']:.2f} s); the training graphed over the "
+        f"mesh, (captures, replays) by batch shape {graphs}")
 
     try:
         mf.main(parse_config(argv + ["--devices", "2", "--output-dir",
@@ -4211,6 +4394,12 @@ def main():
     # phase 6b: the graphed training step against the eager step
     train_graph_run = train_graph_phase(train_model, train_batch, train_cfg,
                                         args, card)
+    # phase 6c: the mesh training steps, graphed with NCCL inside
+    mesh_graph_run = mesh_graph_phase(train_model, train_batch, train_cfg,
+                                      args, card)
+    # phase 6d: across cards, where the machine has two or more
+    if torch.cuda.device_count() >= 2:
+        mesh_graph_run["cards"] = multi_card_phase(card)
 
     # phase 7: the HICO-DET evaluation from disk
     eval_run = eval_from_disk_phase(model, cfg, args, card)
@@ -4288,6 +4477,12 @@ def main():
     launches["attention_fwd_clip_f32"] += sum(c[k1] for c in tp)
     launches["attention_bwd"] += sum(c[k4] for c in tp)
     launches["cache_logits_fwd_c117"] += tp[2][k3]
+    # phase 6c's mesh steps: phase 6's shapes, batch 4 and every cache row
+    for mesh in ("(1, 1)", "(1, 2) stand-in"):
+        for name, n in zip(("attention_fwd_clip_f32", "attention_bwd",
+                            "cache_logits_fwd_c117"),
+                           mesh_graph_run[mesh]["launches"]):
+            launches[name] += n
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for rec in records:
@@ -4318,6 +4513,7 @@ def main():
                            "first_loss": losses[0], "last_loss": losses[-1],
                            "graphs": train_graphs, "card": card},
             "train_graph_run": train_graph_run,
+            "mesh_graph_run": mesh_graph_run,
             "eval_run": eval_run, "cli_run": cli,
             "generator_run": generator_run, "detr_finetune_run": detr_run,
             "parallel_run": parallel_run, "remainder_run": remainder_run}

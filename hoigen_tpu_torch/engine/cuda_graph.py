@@ -36,6 +36,15 @@ What ``jax.jit`` gives for free, the wrapper keeps by hand:
 A capture or a replay that fails raises; nothing falls back to the eager
 step on the card. On the CPU (tensor leaves on the CPU, as in the tests)
 the wrapper calls the eager step unchanged.
+
+A training step over a mesh of NCCL groups holds its collectives inside
+its graph, as the jitted SPMD step holds its psums. A replay then assumes
+what every rank of that step does: each rank replays the same graph at
+the same call (the same batch signature, the same weight changes), or
+its peers wait in their collectives. NCCL's graph mixing
+(``NCCL_GRAPH_MIXING_SUPPORT``, on by default) lets one rank's eager
+warm-up pair with a peer's replay of the same collective sequence; it
+stays on.
 """
 import operator
 import time
@@ -266,6 +275,16 @@ class GraphedTrainStep:
       generator's seed and offset, and the caller's generator then moves
       on as the eager step would move it. A step without a generator runs
       no dropout, another program, so it is another key.
+
+    A step over a mesh (``make_train_step(..., mesh=...)``) is captured
+    with its collectives inside where they are NCCL (``parallel/
+    distributed.py::capturable``; ``engine/train.py::Trainer`` keeps a
+    gloo mesh's step eager, and a gloo collective of a CUDA tensor raises
+    inside a capture): the warm-up runs every collective of the step,
+    which creates each group's NCCL communicator (a subgroup's is made at
+    its first collective) before the capture, and the capture records
+    them as device work on NCCL's stream (what a replay assumes: the
+    module docstring).
 
     ``check_s`` adds up the host time of the weight check before each
     call and of the versions' bump after each replay."""

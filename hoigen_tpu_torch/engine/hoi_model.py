@@ -186,7 +186,9 @@ class GroupedAdamW:
     ``mesh``: with a model axis above 1, the cache-row leaves hold this
     rank's slice (``parallel/mesh.py::shard_cache_rows``), and a group's
     norm adds their squared norms over the model group, so that every
-    rank clips by the unsharded norm."""
+    rank clips by the unsharded norm. Which of a group's leaves are
+    sharded is a device mask made at construction (``"sharded"`` in the
+    group), so the norm builds no tensor from host data."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -198,18 +200,22 @@ class GroupedAdamW:
         for path, t in named_params:
             groups[group(path)].append(t)
         self.row_group = mesh.row_group if mesh is not None else None
-        self.sharded = {id(t) for path, t in named_params
-                        if is_cache_row_leaf(path)}
+        sharded = {id(t) for path, t in named_params
+                   if is_cache_row_leaf(path)}
         self.lr_drop_step = lr_drop_step
         self.max_norm = max_norm
         self.weight_decay = weight_decay
+        device = named_params[0][1].device if named_params else "cpu"
         with torch.no_grad():
             self.param_groups = [
                 {"name": name, "lr": base_lr[name], "params": ts,
                  "mu": [torch.zeros_like(t) for t in ts],
                  "nu": [torch.zeros_like(t) for t in ts]}
                 for name, ts in groups.items() if ts]
-        device = named_params[0][1].device if named_params else "cpu"
+        if self.row_group is not None:
+            for g in self.param_groups:
+                g["sharded"] = torch.tensor(
+                    [id(t) in sharded for t in g["params"]], device=device)
         self._count = torch.zeros((), dtype=torch.int64, device=device)
 
     @property
@@ -249,14 +255,15 @@ class GroupedAdamW:
                 flat, grads)):
             g.copy_(r)
 
-    def _norm(self, params):
-        grads = [t.grad for t in params]
+    def _norm(self, group):
+        """The global norm of a group's gradients (over the model group's
+        rows where they are sharded)."""
+        grads = [t.grad for t in group["params"]]
         if self.row_group is None:
             return torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
         sq = torch.stack(torch._foreach_norm(grads)) ** 2
-        sharded = torch.as_tensor([id(t) in self.sharded for t in params],
-                                  device=sq.device)
+        sharded = group["sharded"]
         rows = all_reduce(torch.where(sharded, sq, 0.0).sum(),
                           self.row_group)
         return torch.sqrt(torch.where(sharded, 0.0, sq).sum() + rows)
@@ -279,7 +286,7 @@ class GroupedAdamW:
         for group in self.param_groups:
             params, mu, nu = group["params"], group["mu"], group["nu"]
             grads = [p.grad for p in params]
-            norm = self._norm(params)
+            norm = self._norm(group)
             keep = norm < self.max_norm
             torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
             torch._foreach_mul_(grads, torch.where(keep, 1.0, self.max_norm))

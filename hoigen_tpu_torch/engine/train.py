@@ -8,7 +8,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from ..parallel.distributed import barrier, is_primary
+from ..parallel.distributed import barrier, capturable, is_primary
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .cuda_graph import GraphedTrainStep
 from .partition import trainable_leaves
@@ -42,14 +42,18 @@ class Trainer:
     On the card the step runs as one CUDA graph per batch signature
     (``engine/cuda_graph.py::GraphedTrainStep``), as the JAX Trainer jits
     it; on the CPU it runs eagerly. A step over a mesh (its ``mesh``
-    attribute, from ``make_train_step``) stays eager: its collectives go
-    through host copies inside the step, which no graph can hold."""
+    attribute, from ``make_train_step``) is graphed with its collectives
+    inside where every group it reduces over is NCCL
+    (``parallel/distributed.py::capturable``), as the CLI's process
+    groups on the card are; under gloo its collectives run on host
+    copies, which no graph can hold, and the step runs eagerly."""
 
     def __init__(self, train_step: Callable, optimizer, params, buffers,
                  print_interval: int = 500, output_dir: Optional[str] = None,
                  checkpoint_every_epoch: bool = True, data_rank: int = 0):
-        self.step_fn = train_step if getattr(train_step, "mesh", None) \
-            is not None else GraphedTrainStep(train_step, optimizer)
+        mesh = getattr(train_step, "mesh", None)
+        self.step_fn = train_step if mesh is not None and \
+            not capturable(mesh) else GraphedTrainStep(train_step, optimizer)
         self.optimizer = optimizer
         self.params = params
         self.buffers = buffers

@@ -94,16 +94,31 @@ def barrier() -> None:
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     """In-place SUM of ``t`` over ``group`` (None: every process; the
     identity without a process group). Under gloo a CUDA tensor is reduced
-    on a host copy and copied back."""
+    on a host copy and copied back, which a CUDA graph cannot hold: it
+    raises inside a capture."""
     if not _initialized():
         return t
     if t.is_cuda and dist.get_backend(group) == "gloo":
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("all_reduce: a gloo collective of a CUDA "
+                               "tensor runs on a host copy, which a CUDA "
+                               "graph cannot capture")
         host = t.cpu()
         dist.all_reduce(host, group=group)
         t.copy_(host)
     else:
         dist.all_reduce(t, group=group)
     return t
+
+
+def capturable(mesh) -> bool:
+    """Whether a training step over ``mesh`` can be captured in a CUDA
+    graph with its collectives inside: every group the step reduces over
+    (the data group, and the row group where the cache rows are sharded)
+    is NCCL, whose collectives are device work. Under gloo they run on
+    host copies. A mesh without groups (one process) has no collective."""
+    groups = [g for g in (mesh.data_group, mesh.row_group) if g is not None]
+    return all(dist.get_backend(g) == "nccl" for g in groups)
 
 
 def local_batch_indices(n: int, global_batch_size: int, shuffle: bool,

@@ -197,6 +197,104 @@ def trainable_numpy(params, mesh, fn):
     return out
 
 
+# the graph check's steps: 2 + 2 across the learning-rate drop at update 2
+GRAPH_STEPS, GRAPH_LR_DROP, GRAPH_SEED = 4, 2, 5
+
+
+def tree_state(params, opt):
+    """Every trainable leaf, moment and the count, in a fixed order."""
+    from hoigen_tpu_torch.engine.partition import trainable_leaves
+    return ([t.detach().clone() for _, t in trainable_leaves(params)]
+            + [t.clone() for g in opt.param_groups
+               for t in g["mu"] + g["nu"]] + [opt._count.clone()])
+
+
+def old_norm(opt, group, params):
+    """A group's norm as ``GroupedAdamW._norm`` made it before its
+    row-group mask was a device tensor: the mask built from a host list at
+    every call."""
+    from hoigen_tpu_torch.engine.partition import trainable_leaves
+    from hoigen_tpu_torch.parallel import all_reduce, is_cache_row_leaf
+    sharded = {id(t) for p, t in trainable_leaves(params)
+               if is_cache_row_leaf(p)}
+    sq = torch.stack(torch._foreach_norm(
+        [t.grad for t in group["params"]])) ** 2
+    mask = torch.as_tensor([id(t) in sharded for t in group["params"]])
+    rows = all_reduce(torch.where(mask, sq, 0.0).sum(), opt.row_group)
+    return torch.sqrt(torch.where(mask, 0.0, sq).sum() + rows)
+
+
+def graph_steps(mesh):
+    """The mesh step of the tiny flagship (the language-aware term on,
+    dropout from a generator) as ``Trainer`` wraps it: without a
+    capturable mesh (gloo) the step itself; then, with the capturability
+    predicate patched to true and the ``torch.cuda`` calls on the CPU
+    stand-ins of ``torch_graph_tools.py``, a ``GraphedTrainStep`` whose
+    replays run the taped capture (its collectives included) again. Each
+    of ``GRAPH_STEPS`` steps runs on the graphed copy through the Trainer
+    and on an eager copy from the same weights, dropout seeds and batch;
+    the eager copy's second step runs under ``UnsafeOps``. -> {"trainer":
+    the type of the Trainer's step under gloo, "unsafe": the ops found,
+    "losses": [(graphed, eager)], "equal": [every trainable leaf, moment
+    and the count bit for bit, a step], "records": the graphs' records,
+    "count": the updates made, "norm_equal": on a model axis, each
+    group's norm against the one from a host-built mask, bit for bit}."""
+    import pytest
+
+    from torch_graph_tools import TapedCapture, TapedGraph, UnsafeOps, \
+        stand_in_cuda
+
+    from hoigen_tpu_torch.engine import cuda_graph as cg
+    from hoigen_tpu_torch.engine import train as train_module
+    from hoigen_tpu_torch.parallel import shard_batch, shard_cache_rows
+
+    def copy():
+        cfg, params, buffers = tiny_flagship()
+        params, buffers = shard_cache_rows(mesh, params, buffers)
+        opt = hm.make_optimizer(lr_drop_step=GRAPH_LR_DROP,
+                                mesh=mesh)(params)
+        return cfg, params, buffers, opt, hm.make_train_step(
+            cfg, opt, "cpu", mesh=mesh)
+
+    cfg, params, buffers, opt, step = copy()
+    _, eparams, ebuffers, eopt, estep = copy()
+    batches = [{k: torch.as_tensor(v) for k, v in
+                shard_batch(mesh, b).items()}
+               for b in global_batches(cfg, buffers, GRAPH_STEPS)]
+    out = {"trainer": type(train_module.Trainer(
+        step, opt, params, buffers).step_fn).__name__}
+    with pytest.MonkeyPatch.context() as mp:
+        capture = TapedCapture(lambda: cg.tensor_leaves((params, buffers))
+                               + cg.tensor_leaves(opt.state_tensors()))
+        stand_in_cuda(mp, capture, TapedGraph)
+        mp.setattr(train_module, "capturable", lambda mesh: True)
+        trainer = train_module.Trainer(step, opt, params, buffers,
+                                       checkpoint_every_epoch=False,
+                                       data_rank=mesh.data_index)
+        out.update(graphed=type(trainer.step_fn).__name__, losses=[],
+                   equal=[])
+        for i, batch in enumerate(batches):
+            got = trainer.run_epoch([batch], seed=GRAPH_SEED)
+            gen = torch.Generator().manual_seed(
+                GRAPH_SEED * 1_000_003 + i + (mesh.data_index << 40))
+            if i == 1:
+                with UnsafeOps() as mode:
+                    want = estep(eparams, ebuffers, batch, gen)
+                out["unsafe"] = mode.found
+            else:
+                want = estep(eparams, ebuffers, batch, gen)
+            out["losses"].append((got, float(want["loss"])))
+            out["equal"].append(all(map(torch.equal, tree_state(params, opt),
+                                        tree_state(eparams, eopt))))
+        out["records"] = list(trainer.step_fn.records().values())
+    out["count"] = opt.count
+    if opt.row_group is not None:
+        out["norm_equal"] = [
+            bool(torch.equal(eopt._norm(g), old_norm(eopt, g, eparams)))
+            for g in eopt.param_groups]
+    return out
+
+
 # ------------------------------------------------------------ the worker
 def collectives(rank, world):
     from hoigen_tpu_torch.parallel import all_reduce, gather_pyobj, \
@@ -255,6 +353,10 @@ def main():
                      **leaves)
             np.savez(os.path.join(spec["out"], f"first_{name}_{rank}.npz"),
                      **grads)
+    if "graph" in spec["checks"]:
+        result["graph"] = {name: graph_steps(make_mesh(*shape))
+                           for name, shape in (("dp", (world, 1)),
+                                               ("tp", (1, world)))}
     if "cli" in spec["checks"]:
         patch_cli()
         cwd = os.path.join(spec["out"], "cwd")

@@ -29,8 +29,8 @@ from hoigen_tpu_torch.ops import _weights
 from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
 from hoigen_tpu_torch.ops.pixels import IMAGENET_MEAN, IMAGENET_STD
 
-from torch_port_common import DETR_HW, DETR_KW, UnsafeOps, eval_configs, \
-    stand_in_cuda
+from torch_graph_tools import UnsafeOps, stand_in_cuda
+from torch_port_common import DETR_HW, DETR_KW, eval_configs
 
 def _model(tcfg, num_objects=10, seed=0):
     params, buffers = thm.init_hoi_model(

@@ -93,6 +93,7 @@ def test_port_imports_without_jax(modules):
             "hoigen_tpu_torch.parallel",
             "hoigen_tpu_torch.parallel.distributed",
             "hoigen_tpu_torch.parallel.mesh",
+            "hoigen_tpu_torch.tools.mesh_graph_check",
             "hoigen_tpu_torch.cli.inference",
             "hoigen_tpu_torch.engine.profiling",
             "hoigen_tpu_torch.models.clip.resnet",

@@ -7,9 +7,12 @@ multi-process check once: the collectives and an SGD over the global
 batch (as ``tests/test_distributed.py``), three data-parallel AdamW steps
 of the tiny flagship with the language-aware term on (on a (2, 1) mesh),
 one step on a (1, 2) mesh with the cache rows sharded, and the CLI's
-train -> --eval -> --cache (as ``tests/test_cli_main.py``). The same
-steps and CLI runs in this process are the single-process reference,
-whose first step is held against the JAX package's ``make_train_step``.
+train -> --eval -> --cache (as ``tests/test_cli_main.py``), and the
+mesh steps as ``Trainer`` graphs them on the CPU stand-ins of a CUDA
+graph (capture safety, replays against eager steps bit for bit). The
+same steps and CLI runs in this process are the single-process
+reference, whose first step is held against the JAX package's
+``make_train_step``.
 Tolerances are the JAX package's: losses and parameters rtol 1e-5
 (``tests/test_engine.py``), APs rtol 1e-6 and the .mat digests' counts
 equal (``tests/test_cli_main.py``), the sharded loss within 1e-4.
@@ -129,7 +132,8 @@ def two_processes(cli_files):
     root, data, paths = cli_files
     out = str(root / "pair")
     os.makedirs(out)
-    spec = json.dumps({"checks": ["collectives", "dp", "tp", "cli"],
+    spec = json.dumps({"checks": ["collectives", "dp", "tp", "graph",
+                                  "cli"],
                        "out": out, "data": data, "paths": paths})
     env = dict(os.environ)
     env.pop("COORDINATOR_ADDRESS", None)
@@ -327,6 +331,122 @@ def test_cache_row_sharding_matches_dp(two_processes):
             scale = max(float(np.abs(dp[k]).max()), 1e-30)
             np.testing.assert_allclose(tp[k], dp[k], rtol=0,
                                        atol=1e-4 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", ["dp", "tp"])
+def test_mesh_step_is_capture_safe(two_processes, mesh):
+    """On a (2, 1) and a (1, 2) gloo pair, after a warm-up step, the mesh
+    step (the language-aware term on, dropout from a generator, its
+    collectives) makes no op that a CUDA graph could not hold, on either
+    rank. Before the optimizer's row-group mask was made once, the (1, 2)
+    step built it from a host list (``aten.lift_fresh``) at every call."""
+    results, _ = two_processes
+    for r in (0, 1):
+        assert results[r]["graph"][mesh]["unsafe"] == []
+
+
+@pytest.mark.parametrize("mesh", ["dp", "tp"])
+def test_mesh_replays_are_the_eager_steps(two_processes, mesh):
+    """The mesh step through ``Trainer`` with its collectives capturable
+    (the predicate patched to true on the gloo pair) is a
+    ``GraphedTrainStep``; on the stand-ins, its first call warms up and
+    captures the collectives with the rest of the step, and its 3 replays
+    run them again. 2 + 2 steps across the learning-rate drop, dropout on:
+    the losses, every trainable leaf, the moments and the count equal the
+    eager mesh steps' bit for bit after every step, on both ranks."""
+    results, _ = two_processes
+    for r in (0, 1):
+        g = results[r]["graph"][mesh]
+        assert g["graphed"] == "GraphedTrainStep"
+        assert g["equal"] == [True] * worker.GRAPH_STEPS
+        got, want = zip(*g["losses"])
+        assert got == want and len(set(got)) == len(got)
+        assert all(x > 1e-3 for x in got)
+        assert g["count"] == worker.GRAPH_STEPS > worker.GRAPH_LR_DROP
+        assert [(rec["captures"], rec["replays"]) for rec in g["records"]] \
+            == [(1, worker.GRAPH_STEPS - 1)]
+    assert results[0]["graph"][mesh]["losses"] == \
+        results[1]["graph"][mesh]["losses"]
+
+
+def test_row_group_norm_is_the_host_built_mask_norm(two_processes):
+    """The optimizer's norm on a (1, 2) gloo pair, from its row-group mask
+    made once at construction, equals bit for bit the norm from the mask
+    built from a host list at every call, in each learning-rate group;
+    so does it on a mesh whose model group is a group of one (no process
+    group: the collective is the identity)."""
+    results, _ = two_processes
+    for r in (0, 1):
+        assert results[r]["graph"]["tp"]["norm_equal"] == [True, True]
+    from hoigen_tpu_torch.engine import hoi_model as thm
+    from hoigen_tpu_torch.engine.partition import trainable_leaves
+    gen = torch.Generator().manual_seed(0)
+    params = {"upt": {
+        "adapter_H_w": torch.randn(6, 4, generator=gen).requires_grad_(),
+        "text_w": torch.randn(5, generator=gen).requires_grad_(),
+        "clip": {"w": torch.randn(3, 3, generator=gen).requires_grad_()},
+        "dino_cache": torch.randn(4, 6, generator=gen).requires_grad_()}}
+    opt = thm.make_optimizer(mesh=Mesh(1, 2, model_group="one"))(params)
+    for _, t in trainable_leaves(params):
+        t.grad = torch.randn(t.shape, generator=gen)
+    masks = [g["sharded"].tolist() for g in opt.param_groups]
+    assert masks == [[False], [True, False, True]]
+    for g in opt.param_groups:
+        assert torch.equal(opt._norm(g), worker.old_norm(opt, g, params))
+
+
+def test_trainer_graphs_a_mesh_step_whose_groups_are_nccl(two_processes,
+                                                          monkeypatch):
+    """``Trainer`` wraps a step over a mesh in ``GraphedTrainStep`` when
+    every group it reduces over is NCCL (``capturable``: the data group,
+    and the model group where it shards the cache rows), and keeps it
+    eager when one is gloo, as on the gloo pair; a step without a mesh,
+    or over a mesh without groups, is wrapped. On the CPU the wrapper runs
+    the eager step (``test_torch_train_graph.py``)."""
+    from hoigen_tpu_torch.engine import cuda_graph as cg
+    from hoigen_tpu_torch.engine.train import Trainer
+    results, _ = two_processes
+    for r in (0, 1):
+        for mesh in ("dp", "tp"):
+            assert results[r]["graph"][mesh]["trainer"] == "function"
+    monkeypatch.setattr(tdist.dist, "get_backend", lambda group: group)
+
+    def routed(mesh):
+        """-> the Trainer's step: the wrapper's type, or "eager"."""
+        def step(params, buffers, batch, generator=None):
+            pass
+        step.mesh = mesh
+        got = Trainer(step, None, {}, {}).step_fn
+        return "eager" if got is step else type(got)
+    assert routed(None) is cg.GraphedTrainStep
+    assert routed(Mesh(1, 1)) is cg.GraphedTrainStep
+    assert routed(Mesh(2, 1, data_group="nccl")) is cg.GraphedTrainStep
+    assert routed(Mesh(1, 2, data_group="nccl", model_group="nccl")) \
+        is cg.GraphedTrainStep
+    assert routed(Mesh(1, 1, data_group="nccl", model_group="gloo")) \
+        is cg.GraphedTrainStep            # no model axis: no row group
+    for mesh in (Mesh(2, 1, data_group="gloo"),
+                 Mesh(1, 2, data_group="nccl", model_group="gloo"),
+                 Mesh(1, 2, data_group="gloo", model_group="nccl")):
+        assert routed(mesh) == "eager"
+
+
+def test_gloo_collective_of_a_card_tensor_raises_inside_a_capture(
+        monkeypatch):
+    """A gloo collective of a CUDA tensor runs on a host copy, which no
+    CUDA graph can hold: ``all_reduce`` raises inside a capture (and
+    never copies)."""
+    class CardTensor:
+        is_cuda = True
+
+        def cpu(self):
+            raise AssertionError("copied to the host inside a capture")
+    monkeypatch.setattr(tdist, "_initialized", lambda: True)
+    monkeypatch.setattr(tdist.dist, "get_backend", lambda group: "gloo")
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="cannot capture"):
+        all_reduce(CardTensor())
 
 
 @pytest.fixture(scope="module")

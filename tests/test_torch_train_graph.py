@@ -27,8 +27,9 @@ from hoigen_tpu_torch.models.cache import random_caches
 from hoigen_tpu_torch.ops import _weights
 from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
 
-from torch_port_common import DETR_HW, TapedCapture, TapedGraph, \
-    UnsafeOps, eval_configs, stand_in_cuda
+from torch_graph_tools import TapedCapture, TapedGraph, UnsafeOps, \
+    stand_in_cuda
+from torch_port_common import DETR_HW, eval_configs
 
 LR_DROP = 3
 
@@ -256,3 +257,37 @@ def test_changes_between_replays_capture_once_more(monkeypatch, tmp_path):
     after(replace)
     assert g.leaves[0] is cg.tensor_leaves(
         (runs.params, runs.buffers))[0]
+
+
+def test_mesh_check_runs_are_held_bit_for_bit():
+    """``tools/mesh_graph_check.py``'s runs on the CPU: two from one model
+    and seed, through ``Trainer``, are 0 apart in every kind of its
+    ``gap``, which is what ``mesh_run`` and ``chip_smoke.py`` phase 6c
+    hold them to; one ulp in a loss, a trainable leaf or a moment, a
+    count off by one or a NaN is not."""
+    from hoigen_tpu_torch.tools import mesh_graph_check as mgc
+    tcfg = _config()
+    params, buffers, _, batch = _model(tcfg)
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    runs = [mgc.new_run(tcfg, (params, buffers), "cpu") for _ in range(2)]
+    for r in runs:
+        for _ in range(2):
+            mgc.step_once(r, batch)
+    a, b = (mgc.state(r) for r in runs)
+    assert a["count"] == 2 and np.isfinite(a["metrics"]).all()
+    assert mgc.gap(a, b) == dict.fromkeys(
+        ("loss", "n_p", "leaves", "moments", "count"), 0)
+
+    def ulp(t):
+        return torch.nextafter(t, torch.full_like(t, np.inf))
+    for key, change in (
+            ("loss", lambda s: s["metrics"].__setitem__(
+                (1, 0), np.nextafter(s["metrics"][1, 0], np.inf))),
+            ("leaves", lambda s: s["leaves"][-1].copy_(ulp(s["leaves"][-1]))),
+            ("moments", lambda s: s["moments"][0].copy_(
+                ulp(s["moments"][0]))),
+            ("count", lambda s: s.__setitem__("count", 3)),
+            ("leaves", lambda s: s["leaves"][0].view(-1)[0].fill_(np.nan))):
+        got = mgc.state(runs[0])
+        change(got)
+        assert not mgc.gap(got, b)[key] <= 0, key
