@@ -148,8 +148,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    frozen CLIP bit-identical) and a small RN tower card against CPU; the
    legacy interaction head at full width and ``generate_masks`` at
    800 x 1344 card against CPU; ``engine/profiling.py`` on phase 5's
-   eval step (a trace of five steps, StepTimer's images/s, the peak
-   allocation), measured after phase 7 while that model is alive.
+   eval step (a profiler trace of five steps with the tracer's spans in
+   it, the tracer's own trace and snapshot, the steps' images/s, the
+   peak allocation), measured after phase 7 while that model is alive.
 
 The last two lines of standard output are one JSON object of kernel
 numbers and one naming the device. Exits non-zero when no CUDA device is
@@ -1249,11 +1250,15 @@ def graph_phase(model, batch, cfg, args, card, gstep):
     import numpy as np
     import torch
 
+    from hoigen_tpu_torch.engine import profiling
     from hoigen_tpu_torch.engine.cuda_graph import signature
     from hoigen_tpu_torch.engine.hoi_model import make_eval_step
     from hoigen_tpu_torch.models.upt import apply_vis_tor
 
     t5b = time.perf_counter()
+    # the tracer's host spans time the weight check (graph.check)
+    profiling.reset()
+    profiling.enable()
     params, buffers = model
     eager = make_eval_step(cfg)
     g = gstep.graphs[signature(batch)]
@@ -1345,13 +1350,16 @@ def graph_phase(model, batch, cfg, args, card, gstep):
         cache_w.copy_(saved[0])
         layer1_w.copy_(saved[1])
     record["restored"], _ = after_change("weights restored", params)
-    check_us = 1e6 * gstep.check_s / gstep.checks
+    check = profiling.snapshot()["spans"]["graph.check"]
+    profiling.disable()
+    profiling.reset()
+    check_us = 1e3 * check["per_step_ms"]
     record["graphs"] = gstep.records()
     record["check_us_per_call"] = check_us
     for key, rec in record["graphs"].items():
         log(f"phase 5b: graph {key}: {rec}")
     log(f"phase 5b: the weight check's host time {check_us:.1f} us a call "
-        f"(mean of {gstep.checks})")
+        f"(mean of {check['steps']})")
     log(f"phase 5b took {time.perf_counter() - t5b:.1f} s")
     return record
 
@@ -1827,6 +1835,7 @@ def train_graph_phase(model, batch, cfg, args, card):
     import numpy as np
     import torch
 
+    from hoigen_tpu_torch.engine import profiling
     from hoigen_tpu_torch.engine.checkpoint import save_checkpoint
     from hoigen_tpu_torch.engine.cuda_graph import GraphedTrainStep, graphed
     from hoigen_tpu_torch.engine.hoi_model import make_eval_step, \
@@ -1836,6 +1845,10 @@ def train_graph_phase(model, batch, cfg, args, card):
     from hoigen_tpu_torch.tools.mesh_graph_check import trainable_copy
 
     t6b = time.perf_counter()
+    # the tracer's host spans time the weight check and the versions' bump
+    # (graph.check)
+    profiling.reset()
+    profiling.enable()
     params0, buffers = model
     failures = []
     runs = {}
@@ -2050,14 +2063,18 @@ def train_graph_phase(model, batch, cfg, args, card):
                         f"{record['eval_after_training']}")
 
     record["graphs"] = gstep.records()
-    record["check_us_per_call"] = 1e6 * gstep.check_s / gstep.checks
+    check = profiling.snapshot()["spans"]["graph.check"]
+    profiling.disable()
+    profiling.reset()
+    record["check_us_per_call"] = 1e3 * check["per_step_ms"]
     record["pool_bytes"] = sum(r["pool_bytes"] for r in
                                record["graphs"].values())
     for key, rec in record["graphs"].items():
         log(f"phase 6b: graph {key}: {rec}")
     log(f"phase 6b: the weight check's and the version bump's host time "
         f"{record['check_us_per_call']:.1f} us a call (mean of "
-        f"{gstep.checks}, {len(g.leaves)} tensors); {len(frozen)} frozen "
+        f"{check['steps']} graphed calls, the eval step's few among them, "
+        f"{len(g.leaves)} tensors); {len(frozen)} frozen "
         f"tensors bit-identical; on {card}")
     record["seconds"] = time.perf_counter() - t6b
     log(f"phase 6b took {record['seconds']:.1f} s")
@@ -4087,36 +4104,53 @@ def head_and_masks_card_and_cpu(seed):
 
 
 def profiling_check(model, step, batch, eval_images_per_s):
-    """``engine/profiling.py`` on phase 5's graphed eval step ``step``: a
-    trace of five steps written as a Chrome trace, StepTimer's images/s
-    over the same steps beside phase 5's, and the card's peak allocation.
-    -> record."""
+    """``engine/profiling.py`` on phase 5's graphed eval step ``step``
+    (captured with tracing off: spans, no device ranges): five steps,
+    their outputs on the host, under ``trace`` with the tracer on, written
+    as a Chrome trace that holds the tracer's ``hoigen.graph.replay``
+    ranges; the tracer's own trace and snapshot (a check, a staging and a
+    replay a step); the steps' images/s beside phase 5's; the card's peak
+    allocation. -> record."""
+    import shutil
     import tempfile
 
-    from hoigen_tpu_torch.engine.profiling import StepTimer, \
-        device_memory_stats, trace
-    timer = StepTimer()
+    import torch
+
+    from hoigen_tpu_torch.engine import profiling
     logdir = tempfile.mkdtemp(prefix="trace_")
-    with trace(logdir):
+    profiling.reset()
+    profiling.enable("cuda" if torch.cuda.is_available() else None)
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
         for _ in range(5):
-            timer.timed(step, *model, batch,
-                        fetch=lambda o: o["detection_scores"])
+            step(*model, batch)["detection_scores"].cpu()
+    seconds = time.perf_counter() - t0
+    snap = profiling.snapshot()
+    profiling.write(os.path.join(logdir, "program_trace.json"))
+    profiling.disable()
+    profiling.reset()
     path = os.path.join(logdir, "trace.json")
     size = os.path.getsize(path)
-    stats = device_memory_stats()
-    if not size or stats is None or \
-            "allocated_bytes.all.peak" not in stats:
-        fail(f"profiling: trace of {size} bytes, memory stats {stats}")
+    with open(path) as f:
+        replays = f.read().count('"hoigen.graph.replay"')
+    counts = {k: snap["spans"].get(k, {}).get("count") for k in
+              ("graph.check", "graph.stage", "graph.replay")}
+    stats = torch.cuda.memory_stats()
+    if not size or not replays or set(counts.values()) != {5} or \
+            not os.path.getsize(os.path.join(logdir, "program_trace.json")) \
+            or "allocated_bytes.all.peak" not in stats:
+        fail(f"profiling: trace of {size} bytes with {replays} replay "
+             f"ranges, spans {counts}, memory stats {stats}")
     b = batch["images"].shape[0]
-    rec = {"trace_bytes": size, "timer_images_per_s":
-           timer.images_per_sec(b), "timer_mean_ms": timer.mean * 1e3,
+    rec = {"trace_bytes": size, "images_per_s": 5 * b / seconds,
+           "step_ms": seconds / 5 * 1e3, "spans": snap["spans"],
            "phase5_images_per_s": eval_images_per_s,
            "peak_allocated_gib": stats["allocated_bytes.all.peak"] / 2 ** 30}
-    import shutil
     shutil.rmtree(logdir, ignore_errors=True)
-    log(f"remainder: profiling: a trace of 5 eval steps, {size} bytes; "
-        f"StepTimer {rec['timer_images_per_s']:.2f} images/s under the "
-        f"profiler (phase 5: {eval_images_per_s:.2f}); peak allocation "
+    log(f"remainder: profiling: a trace of 5 eval steps, {size} bytes, "
+        f"{replays} hoigen.graph.replay ranges; {rec['images_per_s']:.2f} "
+        f"images/s under the profiler and the tracer (phase 5: "
+        f"{eval_images_per_s:.2f}); peak allocation "
         f"{rec['peak_allocated_gib']:.2f} GiB ok")
     return rec
 

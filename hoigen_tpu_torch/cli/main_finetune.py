@@ -31,9 +31,11 @@ Differences from the JAX CLI:
 :func:`batches_from_factory` and :func:`eval_batches` are the input and
 evaluation loops; :func:`main` runs from a :class:`RunConfig`
 (``parse_config``). ``main`` runs on CUDA unless it is given
-``device="cpu"``.
+``device="cpu"``. With ``--trace-dir`` the training or evaluation runs
+under the program's tracer (:func:`traced`).
 """
 import contextlib
+import json
 import os
 import random
 
@@ -42,6 +44,7 @@ import torch
 
 from ..data.factory import DataFactory, collate_batch, slice_batch
 from ..data.loader import batch_indices, iter_batches
+from ..engine import profiling
 from ..engine.checkpoint import latest_checkpoint
 from ..engine.cuda_graph import graphed
 from ..engine.eval import cache_hico, cache_vcoco, evaluate_hico, \
@@ -473,6 +476,30 @@ def _import_reference(cfg, params, buffers, pair, dev):
     return mark_trainable(to_device(params, dev)), to_device(buffers, dev)
 
 
+@contextlib.contextmanager
+def traced(cfg: RunConfig, dev, primary=True):
+    """With ``cfg.trace_dir`` (on process 0): the block under the program's
+    tracer (``engine/profiling.py``; device ranges on a CUDA ``dev``),
+    then ``program_trace.json`` (a Chrome trace of its spans, device
+    ranges and idle gaps) and ``program_trace_summary.json`` (their
+    snapshot) written under it. A graph captured before the block holds
+    no device ranges."""
+    if not (cfg.trace_dir and primary):
+        yield
+        return
+    profiling.reset()
+    profiling.enable(dev)
+    try:
+        yield
+        os.makedirs(cfg.trace_dir, exist_ok=True)
+        profiling.write(os.path.join(cfg.trace_dir, "program_trace.json"))
+        with open(os.path.join(cfg.trace_dir,
+                               "program_trace_summary.json"), "w") as f:
+            json.dump(profiling.snapshot(), f, indent=1)
+    finally:
+        profiling.disable()
+
+
 def main(cfg: RunConfig, device=None):
     """Train (returns the Trainer), evaluate (returns the HICO-DET result
     dict or the V-COCO report) or cache (returns None) as ``cfg`` says, on
@@ -626,50 +653,51 @@ def _main(cfg: RunConfig, dev, multi):
         return metrics
 
     if cfg.eval or cfg.cache:
-        # one CUDA graph per batch shape, as the JAX CLI jits the step
-        runs = eval_batches(graphed(make_eval_step(model_cfg, dev)), params,
-                            buffers, test_factory, cfg)
-        # several processes score their rows and merge the ragged
-        # per-image results (process 0 writes the files)
-        gather = gather_pyobj if multi else None
-        if cfg.cache:
-            if cfg.dataset == "hicodet":
-                cache_hico(runs, test_factory.dataset,
-                           model_cfg.upt.proposals,
-                           HICO.object_n_verb_to_interaction,
-                           HICO.object_to_interaction, cfg.num_classes,
-                           cfg.output_dir, gather_fn=gather,
-                           is_primary=primary)
-            else:
-                cache_vcoco(runs, test_factory.dataset,
-                            model_cfg.upt.proposals, cfg.output_dir,
-                            gather_fn=gather, is_primary=primary)
-            return None
-        if cfg.dataset == "vcoco":
-            # beyond the reference, which defers to the official toolkit
-            # (main_tip_finetune.py:912): the vsrl role AP in-repo
-            report = evaluate_vcoco(runs, test_factory.dataset,
-                                    model_cfg.upt.proposals,
-                                    gather_fn=gather, is_primary=primary)
-            for k in ("role_ap_scenario_1", "role_ap_scenario_2",
-                      "agent_ap"):
-                print(f"{k}: mean AP {report[k]['mean'] * 100:.2f}")
-            return report
-        result = evaluate_hico(
-            runs, test_factory.dataset, cfg.num_classes,
-            model_cfg.upt.proposals, HICO.object_n_verb_to_interaction,
-            zs_unseen=HICO.unseen_index[cfg.zs_type] if cfg.zs else None,
-            gather_fn=process_allgather_ragged if multi else None,
-            ap_workers=cfg.num_workers,
-            train_anno_interaction=train_factory.dataset.anno_interaction)
-        print(f"The mAP is {result['mAP'] * 100:.2f}, "
-              f"rare: {result['mAP_rare'] * 100:.2f}, "
-              f"none-rare: {result['mAP_non_rare'] * 100:.2f}")
-        if cfg.zs:
-            print(f"zero-shot({cfg.zs_type}) "
-                  f"unseen: {result['mAP_unseen'] * 100:.2f} "
-                  f"seen: {result['mAP_seen'] * 100:.2f}")
-        return result
+        with traced(cfg, dev, primary):
+            # one CUDA graph per batch shape, as the JAX CLI jits the step
+            runs = eval_batches(graphed(make_eval_step(model_cfg, dev)),
+                                params, buffers, test_factory, cfg)
+            # several processes score their rows and merge the ragged
+            # per-image results (process 0 writes the files)
+            gather = gather_pyobj if multi else None
+            if cfg.cache:
+                if cfg.dataset == "hicodet":
+                    cache_hico(runs, test_factory.dataset,
+                               model_cfg.upt.proposals,
+                               HICO.object_n_verb_to_interaction,
+                               HICO.object_to_interaction, cfg.num_classes,
+                               cfg.output_dir, gather_fn=gather,
+                               is_primary=primary)
+                else:
+                    cache_vcoco(runs, test_factory.dataset,
+                                model_cfg.upt.proposals, cfg.output_dir,
+                                gather_fn=gather, is_primary=primary)
+                return None
+            if cfg.dataset == "vcoco":
+                # beyond the reference, which defers to the official toolkit
+                # (main_tip_finetune.py:912): the vsrl role AP in-repo
+                report = evaluate_vcoco(runs, test_factory.dataset,
+                                        model_cfg.upt.proposals,
+                                        gather_fn=gather, is_primary=primary)
+                for k in ("role_ap_scenario_1", "role_ap_scenario_2",
+                          "agent_ap"):
+                    print(f"{k}: mean AP {report[k]['mean'] * 100:.2f}")
+                return report
+            result = evaluate_hico(
+                runs, test_factory.dataset, cfg.num_classes,
+                model_cfg.upt.proposals, HICO.object_n_verb_to_interaction,
+                zs_unseen=HICO.unseen_index[cfg.zs_type] if cfg.zs else None,
+                gather_fn=process_allgather_ragged if multi else None,
+                ap_workers=cfg.num_workers,
+                train_anno_interaction=train_factory.dataset.anno_interaction)
+            print(f"The mAP is {result['mAP'] * 100:.2f}, "
+                  f"rare: {result['mAP_rare'] * 100:.2f}, "
+                  f"none-rare: {result['mAP_non_rare'] * 100:.2f}")
+            if cfg.zs:
+                print(f"zero-shot({cfg.zs_type}) "
+                      f"unseen: {result['mAP_unseen'] * 100:.2f} "
+                      f"seen: {result['mAP_seen'] * 100:.2f}")
+            return result
 
     # training
     # the data axis spans the processes (any process group, even of one)
@@ -687,13 +715,15 @@ def _main(cfg: RunConfig, dev, multi):
         trainer.restore(resume_path)
         print(f"[load] resumed full training state from {resume_path} "
               f"(epoch {trainer.epoch}, iteration {trainer.iteration})")
-    for epoch in range(trainer.epoch, cfg.epochs):
-        train_factory.set_epoch(epoch)
-        avg = trainer.run_epoch(
-            (d for d, _ in batches_from_factory(
-                train_factory, cfg.batch_size, cfg, seed=cfg.seed + epoch)),
-            seed=cfg.seed + epoch)
-        print(f"[epoch {epoch + 1}/{cfg.epochs}] loss {avg:.4f}")
+    with traced(cfg, dev, primary):
+        for epoch in range(trainer.epoch, cfg.epochs):
+            train_factory.set_epoch(epoch)
+            avg = trainer.run_epoch(
+                (d for d, _ in batches_from_factory(
+                    train_factory, cfg.batch_size, cfg,
+                    seed=cfg.seed + epoch)),
+                seed=cfg.seed + epoch)
+            print(f"[epoch {epoch + 1}/{cfg.epochs}] loss {avg:.4f}")
     return trainer
 
 

@@ -45,6 +45,19 @@ its peers wait in their collectives. NCCL's graph mixing
 (``NCCL_GRAPH_MIXING_SUPPORT``, on by default) lets one rank's eager
 warm-up pair with a peer's replay of the same collective sequence; it
 stays on.
+
+Tracing (``engine/profiling.py``): each call is a step, with the host
+spans ``graph.check`` (the leaf walk, the signature and the freshness
+check, and after a training replay the versions' bump), ``graph.stage``
+(its children ``graph.stage_wait`` for the staging's previous copy and
+``graph.stage_copy`` for the copies into pinned memory and the
+enqueues), ``graph.replay`` (the launch and the outputs' copies) and
+``graph.capture`` (``graph.warmup``, ``graph.record``), and the device
+range ``stage`` around each input's copy to the card. The tracer's state
+is read at capture: a graph captured while device ranges are timed keeps
+the ranges its step records (``engine/hoi_model.py``, ``models/upt.py``)
+as event nodes and times them at every replay; a graph captured with
+tracing off holds none, and stays so until it is captured again.
 """
 import operator
 import time
@@ -56,6 +69,7 @@ from ..ops import _weights
 from ..ops.attention import attention_bwd, fused_attention
 from ..ops.fused_resnet import fused_bottleneck_chain
 from ..ops.pallas_cache import fused_cache_logits
+from . import profiling
 
 # the kernel wrappers whose ``launches`` counters a replay keeps true
 COUNTED = (fused_attention, attention_bwd, fused_bottleneck_chain,
@@ -103,7 +117,9 @@ def on_card(leaves):
 class _Graph:
     """The graph of one batch signature: its static inputs (with pinned
     staging for the inputs that arrive on the host), its static outputs,
-    the leaves it was captured against, and what its capture cost."""
+    the leaves it was captured against, the device ranges it times, and
+    what its captures cost (``warmup_s``, ``capture_s``: sums over every
+    capture)."""
 
     def __init__(self, batch, device):
         self.device = device
@@ -116,6 +132,7 @@ class _Graph:
         # a training graph's own dropout generator (None: no dropout)
         self.generator = None
         self.leaves, self.versions, self.held = [], [], []
+        self.ranges = []
         self.deltas = [0] * len(COUNTED)
         self.captures = self.replays = 0
         self.warmup_s = self.capture_s = 0.0
@@ -124,40 +141,54 @@ class _Graph:
     def load(self, batch):
         """Copy ``batch`` into the static inputs on the current stream:
         host arrays through pinned staging, without waiting for the card
-        beyond the staging's previous copy."""
-        self.copied.synchronize()
-        for k, v in batch.items():
-            dst = self.static_in[k]
-            if isinstance(v, torch.Tensor) and v.is_cuda:
-                dst.copy_(v)
-                continue
-            stage = self.staging.get(k)
-            if stage is None:
-                stage = self.staging[k] = torch.empty(
-                    dst.shape, dtype=dst.dtype, pin_memory=True)
-            if isinstance(v, torch.Tensor):
-                stage.copy_(v)
-            else:
-                np.copyto(stage.numpy(), v)
-            dst.copy_(stage, non_blocking=True)
-        self.copied.record()
+        beyond the staging's previous copy. The host's copies come first,
+        then every copy to the card is enqueued at once (the device range
+        ``stage``)."""
+        with profiling.span("graph.stage"):
+            with profiling.span("graph.stage_wait"):
+                self.copied.synchronize()
+            with profiling.span("graph.stage_copy"):
+                sources = {}
+                for k, v in batch.items():
+                    if isinstance(v, torch.Tensor) and v.is_cuda:
+                        sources[k] = v
+                        continue
+                    stage = self.staging.get(k)
+                    if stage is None:
+                        dst = self.static_in[k]
+                        stage = self.staging[k] = torch.empty(
+                            dst.shape, dtype=dst.dtype, pin_memory=True)
+                    if isinstance(v, torch.Tensor):
+                        stage.copy_(v)
+                    else:
+                        np.copyto(stage.numpy(), v)
+                    sources[k] = stage
+                with profiling.device_range("stage"):
+                    for k, src in sources.items():
+                        self.static_in[k].copy_(src, non_blocking=True)
+                self.copied.record()
 
     def capture(self, warmup, record, pool=None, generator=None):
         """Run ``warmup()`` eagerly on a side stream, then capture
         ``record()`` (into ``pool`` where given, drawing from
         ``generator`` where given). -> the warm-up's outputs."""
+        with profiling.span("graph.capture"):
+            return self._capture(warmup, record, pool, generator)
+
+    def _capture(self, warmup, record, pool, generator):
         torch.cuda.synchronize(self.device)
         # the previous capture (if any) read leaves that changed since
         self.graph = self.static_out = None
-        self.held = []
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            out = warmup()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        self.warmup_s = time.perf_counter() - t0
+        self.held, self.ranges = [], []
+        with profiling.span("graph.warmup"):
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                out = warmup()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            self.warmup_s += time.perf_counter() - t0
 
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
@@ -165,12 +196,15 @@ class _Graph:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            static_out = record()
-        torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
+        with profiling.span("graph.record"), \
+                profiling.capturing() as ranges:
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                static_out = record()
+            torch.cuda.synchronize(self.device)
+            self.capture_s += time.perf_counter() - t0
+        self.ranges = ranges
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         # nothing ran at capture: its counts come back with each replay
         self.deltas = [fn.launches - n for fn, n in zip(COUNTED, counts)]
@@ -189,15 +223,23 @@ class _Graph:
 
     def replay(self, mode=torch.inference_mode):
         """Replay on the current stream. -> copies of the outputs, made
-        under ``mode``."""
-        self.graph.replay()
-        for fn, n in zip(COUNTED, self.deltas):
-            fn.launches += n
-        self.replays += 1
-        with mode():
-            return {k: v.clone() for k, v in self.static_out.items()}
+        under ``mode``. The ranges of its previous replay are read
+        first."""
+        profiling.resolve(self.ranges)
+        with profiling.span("graph.replay"):
+            self.graph.replay()
+            profiling.replayed(self.ranges)
+            for fn, n in zip(COUNTED, self.deltas):
+                fn.launches += n
+            self.replays += 1
+            with mode():
+                return {k: v.clone() for k, v in self.static_out.items()}
 
     def record(self):
+        """The graph's counters, always kept: its captures and replays,
+        the warm-ups' and captures' host seconds over every capture, the
+        memory its last capture took from the pool and the counted
+        kernels' launches a replay."""
         return {"captures": self.captures, "replays": self.replays,
                 "warmup_s": self.warmup_s, "capture_s": self.capture_s,
                 "pool_bytes": self.pool_bytes,
@@ -207,26 +249,25 @@ class _Graph:
 
 class GraphedStep:
     """``step(params, buffers, batch)`` captured per batch signature on
-    the card, eager on the CPU (see the module docstring). ``check_s`` and
-    ``checks`` add up the host time of the per-call weight check."""
+    the card, eager on the CPU (see the module docstring). Each call is a
+    step of the tracer."""
 
     def __init__(self, step):
         self.step = step
         self.graphs = {}
-        self.check_s = 0.0
-        self.checks = 0
 
     def __call__(self, params, buffers, batch):
-        t0 = time.perf_counter()
-        leaves = tensor_leaves((params, buffers))
-        if not on_card(leaves):
+        profiling.next_step()
+        with profiling.span("graph.check"):
+            leaves = tensor_leaves((params, buffers))
+            card = on_card(leaves)
+            if card:
+                key = signature(batch)
+                g = self.graphs.get(key)
+                fresh = g is not None and g.graph is not None and \
+                    unchanged(leaves, g.leaves, g.versions)
+        if not card:
             return self.step(params, buffers, batch)
-        key = signature(batch)
-        g = self.graphs.get(key)
-        fresh = g is not None and g.graph is not None and unchanged(
-            leaves, g.leaves, g.versions)
-        self.check_s += time.perf_counter() - t0
-        self.checks += 1
         if g is None:
             g = self.graphs[key] = _Graph(batch, leaves[0].device)
         g.load(batch)
@@ -286,32 +327,32 @@ class GraphedTrainStep:
     them as device work on NCCL's stream (what a replay assumes: the
     module docstring).
 
-    ``check_s`` adds up the host time of the weight check before each
-    call and of the versions' bump after each replay."""
+    Each call is a step of the tracer; its ``graph.check`` span is the
+    weight check before the call and the versions' bump after a
+    replay."""
 
     def __init__(self, step, optimizer):
         self.step = step
         self.optimizer = optimizer
         self.graphs = {}
         self.pool = None
-        self.check_s = 0.0
-        self.checks = 0
 
     def _written(self):
         return tensor_leaves(self.optimizer.state_tensors())
 
     def __call__(self, params, buffers, batch, generator=None):
-        t0 = time.perf_counter()
-        leaves = tensor_leaves((params, buffers))
-        if not on_card(leaves):
+        profiling.next_step()
+        with profiling.span("graph.check"):
+            leaves = tensor_leaves((params, buffers))
+            card = on_card(leaves)
+            if card:
+                leaves += self._written()
+                key = (signature(batch), generator is not None)
+                g = self.graphs.get(key)
+                fresh = g is not None and g.graph is not None and \
+                    unchanged(leaves, g.leaves, g.versions)
+        if not card:
             return self.step(params, buffers, batch, generator)
-        leaves += self._written()
-        key = (signature(batch), generator is not None)
-        g = self.graphs.get(key)
-        fresh = g is not None and g.graph is not None and unchanged(
-            leaves, g.leaves, g.versions)
-        self.check_s += time.perf_counter() - t0
-        self.checks += 1
         if g is None:
             g = self.graphs[key] = _Graph(batch, leaves[0].device)
             if generator is not None:
@@ -330,12 +371,11 @@ class GraphedTrainStep:
         if generator is not None:
             g.generator.set_state(generator.get_state())
         out = g.replay(torch.no_grad)
-        t0 = time.perf_counter()
-        if generator is not None:
-            generator.set_state(g.generator.get_state())
-        torch.autograd.graph.increment_version(self._written())
-        g.versions = [t._version for t in g.leaves]
-        self.check_s += time.perf_counter() - t0
+        with profiling.span("graph.check"):
+            if generator is not None:
+                generator.set_state(g.generator.get_state())
+            torch.autograd.graph.increment_version(self._written())
+            g.versions = [t._version for t in g.leaves]
         return out
 
     def records(self):

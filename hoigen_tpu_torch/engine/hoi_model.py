@@ -30,6 +30,7 @@ from ..ops.resize import batch_resize_normalize
 from ..parallel.distributed import all_reduce
 from ..parallel.mesh import is_cache_row_leaf
 from .partition import lr_group, mark_trainable, trainable_leaves
+from .profiling import device_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,31 +104,39 @@ def _forward(params, buffers, batch, cfg: HOIModelConfig, training=False,
     """The JAX package's ``_forward``: detections (eval) or (loss, aux)
     (training). DETR and DINO run under no grad. ``generator``: dropout in
     training (None runs none, as the JAX package's rng=None).
-    ``mesh``: where the cache rows are sharded, or None."""
+    ``mesh``: where the cache rows are sharded, or None. Device ranges
+    (``engine/profiling.py``): ``detr`` from the pixels to the
+    postprocess, ``clip`` for the CLIP stream's pixels, then
+    ``upt_forward``'s."""
     dtype = getattr(torch, cfg.dtype)
     clip_cfg = cfg.clip
     if clip_cfg.fused_attention and not training:
         # the fused CLIP attention is for its backward (K4); at eval the
         # JAX package runs the plain math, and so does the port
         clip_cfg = dataclasses.replace(clip_cfg, fused_attention=False)
-    if "image_mask" in batch:
-        image_mask = batch["image_mask"]
-    else:
-        image_mask = pad_mask_from_sizes(batch["image_sizes"],
-                                         batch["images"].shape[2],
-                                         batch["images"].shape[3])
-    images = device_normalize(batch["images"], dtype, pad_mask=image_mask)
-    with torch.no_grad():
-        detr_out = detr_forward(params["detr"], images, image_mask, cfg.detr)
-    pred_logits = detr_out["pred_logits"].float()
-    if pred_logits.shape[-1] == 92:
-        # COCO-pretrained V-COCO detector: gather the 91-slot logits down
-        # to 80 real classes (person first) and no-object before the softmax
-        pred_logits = pred_logits[..., constant(
-            tuple(detr_reserve_indices()), pred_logits.device, torch.long)]
-    # postprocess at the CLIP-stream frame, as the reference does
-    post = postprocess(pred_logits, detr_out["pred_boxes"].float(),
-                       batch["clip_sizes"])
+    with device_range("detr"):
+        if "image_mask" in batch:
+            image_mask = batch["image_mask"]
+        else:
+            image_mask = pad_mask_from_sizes(batch["image_sizes"],
+                                             batch["images"].shape[2],
+                                             batch["images"].shape[3])
+        images = device_normalize(batch["images"], dtype,
+                                  pad_mask=image_mask)
+        with torch.no_grad():
+            detr_out = detr_forward(params["detr"], images, image_mask,
+                                    cfg.detr)
+        pred_logits = detr_out["pred_logits"].float()
+        if pred_logits.shape[-1] == 92:
+            # COCO-pretrained V-COCO detector: gather the 91-slot logits
+            # down to 80 real classes (person first) and no-object before
+            # the softmax
+            pred_logits = pred_logits[..., constant(
+                tuple(detr_reserve_indices()), pred_logits.device,
+                torch.long)]
+        # postprocess at the CLIP-stream frame, as the reference does
+        post = postprocess(pred_logits, detr_out["pred_boxes"].float(),
+                           batch["clip_sizes"])
     dino_apply = None
     if cfg.upt.use_dino and params["dino"] is not None:
         def dino_apply(im):
@@ -142,14 +151,16 @@ def _forward(params, buffers, batch, cfg: HOIModelConfig, training=False,
                           "uni": batch["gen_uni"],
                           "obj_cls": batch["gen_obj_cls"],
                           "verb_multihot": batch["gen_verb_multihot"]}
-    if "images_clip" in batch:
-        images_clip = device_normalize(batch["images_clip"], torch.float32)
-    else:
-        # the 224 stream derived from the shipped DETR stream, with PIL's
-        # uint8 rounding
-        images_clip = batch_resize_normalize(
-            batch["images"], batch["image_sizes"].float(),
-            cfg.upt.clip_resolution)
+    with device_range("clip"):
+        if "images_clip" in batch:
+            images_clip = device_normalize(batch["images_clip"],
+                                           torch.float32)
+        else:
+            # the 224 stream derived from the shipped DETR stream, with
+            # PIL's uint8 rounding
+            images_clip = batch_resize_normalize(
+                batch["images"], batch["image_sizes"].float(),
+                cfg.upt.clip_resolution)
     return upt_forward(params["upt"], buffers, post, images_clip,
                        batch["clip_sizes"], clip_cfg, cfg.upt,
                        dino_apply=dino_apply, targets=targets,
@@ -364,14 +375,15 @@ def train_loss(params, buffers, batch, cfg: HOIModelConfig, generator=None,
     global count."""
     _, aux = _forward(params, buffers, batch, cfg, training=True,
                       generator=generator, mesh=mesh)
-    if mesh is not None and mesh.data_group is not None:
-        aux["n_p"] = all_reduce(aux["n_p"].detach().clone(),
-                                mesh.data_group)
-    total = aux["loss_sum"] / torch.clamp(aux["n_p"], min=1.0)
-    if cfg.upt.LA and (mesh is None or mesh.data_index == 0):
-        total = total + language_aware_loss(
-            params["upt"], buffers["origin_text_embeddings"],
-            cfg.upt.LA_weight)
+    with device_range("head"):
+        if mesh is not None and mesh.data_group is not None:
+            aux["n_p"] = all_reduce(aux["n_p"].detach().clone(),
+                                    mesh.data_group)
+        total = aux["loss_sum"] / torch.clamp(aux["n_p"], min=1.0)
+        if cfg.upt.LA and (mesh is None or mesh.data_index == 0):
+            total = total + language_aware_loss(
+                params["upt"], buffers["origin_text_embeddings"],
+                cfg.upt.LA_weight)
     return total, aux
 
 
@@ -386,22 +398,29 @@ def make_train_step(cfg: HOIModelConfig, optimizer, device=None, mesh=None):
     after the backward, the loss reported the global one) with the cache
     rows sharded over its model axis where it has one. The step keeps
     ``mesh`` as its attribute (``engine/train.py::Trainer`` captures a
-    step without one as a CUDA graph)."""
+    step without one as a CUDA graph). Device ranges: ``_forward``'s,
+    ``backward``, ``optimizer`` (``zero_grad`` and the update; on a model
+    axis the update's norm reduction too) and ``allreduce`` (the data
+    axis' gradient and loss sums)."""
     dev = resolve_device(device)
     group = mesh.data_group if mesh is not None else None
 
     def step(params, buffers, batch, generator=None):
         batch = {k: _as_tensor(v, dev) for k, v in batch.items()}
         with full_f32():
-            optimizer.zero_grad()
+            with device_range("optimizer"):
+                optimizer.zero_grad()
             loss, aux = train_loss(params, buffers, batch, cfg, generator,
                                    mesh)
-            loss.backward()
+            with device_range("backward"):
+                loss.backward()
             loss = loss.detach()
             if group is not None:
-                optimizer.all_reduce_grads(group)
-                loss = all_reduce(loss.clone(), group)
-            optimizer.step()
+                with device_range("allreduce"):
+                    optimizer.all_reduce_grads(group)
+                    loss = all_reduce(loss.clone(), group)
+            with device_range("optimizer"):
+                optimizer.step()
         return {"loss": loss, "n_p": aux["n_p"].detach()}
 
     step.mesh = mesh

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..parallel.distributed import barrier, capturable, is_primary
+from . import profiling
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .cuda_graph import GraphedTrainStep
 from .partition import trainable_leaves
@@ -46,7 +47,12 @@ class Trainer:
     inside where every group it reduces over is NCCL
     (``parallel/distributed.py::capturable``), as the CLI's process
     groups on the card are; under gloo its collectives run on host
-    copies, which no graph can hold, and the step runs eagerly."""
+    copies, which no graph can hold, and the step runs eagerly.
+
+    Tracing (``engine/profiling.py``): a span ``trainer.batch`` around
+    each ``next()`` on the batches and ``trainer.sync`` around the wait
+    for each step's loss; each step is a step of the tracer (the graphed
+    step counts its calls, the Trainer an eager step's)."""
 
     def __init__(self, train_step: Callable, optimizer, params, buffers,
                  print_interval: int = 500, output_dir: Optional[str] = None,
@@ -54,6 +60,7 @@ class Trainer:
         mesh = getattr(train_step, "mesh", None)
         self.step_fn = train_step if mesh is not None and \
             not capturable(mesh) else GraphedTrainStep(train_step, optimizer)
+        self._counts_steps = not isinstance(self.step_fn, GraphedTrainStep)
         self.optimizer = optimizer
         self.params = params
         self.buffers = buffers
@@ -98,14 +105,22 @@ class Trainer:
                 device=trainable_leaves(self.params)[0][1].device)
         last = time.perf_counter()
         epoch_loss, n = 0.0, 0
-        for batch in batches:
+        batches = iter(batches)
+        while True:
+            if self._counts_steps:
+                profiling.next_step()
+            with profiling.span("trainer.batch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             t0 = time.perf_counter()
             self._t_data.append(t0 - last)
             if gen is not None:
                 gen.manual_seed(seed * 1_000_003 + self.iteration
                                 + (self.data_rank << 40))
             metrics = self.step_fn(self.params, self.buffers, batch, gen)
-            loss = float(metrics["loss"])
+            with profiling.span("trainer.sync"):
+                loss = float(metrics["loss"])
             if not np.isfinite(loss):
                 raise ValueError(
                     f"HOI loss is not finite at iteration {self.iteration}")

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..engine.profiling import device_range
 from ..ops.boxes import box_iou, recover_boxes
 from ..ops.focal import binary_focal_loss_with_logits, prior_modulated_logits
 from ..ops.pallas_cache import fused_cache_logits
@@ -318,67 +319,75 @@ def upt_forward(params, buffers, detr_post, images_clip, image_sizes,
     mesh: where the cache rows are sharded (``compute_logits``), or None.
     Eval returns the detection dict: dense and compact (verb-LUT) scores,
     verb ids, slot boxes/scores/labels/valid, pair_valid, objects, logits.
-    Training returns (loss, aux) with aux's loss_sum, n_p and gt_labels."""
+    Training returns (loss, aux) with aux's loss_sum, n_p and gt_labels.
+    Device ranges (``engine/profiling.py``): ``proposals``, ``clip``,
+    ``dino`` and ``head`` (the pairs to the loss or the detections)."""
     p_cfg = cfg.proposals
-    boxes, scores, labels, valid = select_region_proposals(
-        detr_post["scores"], detr_post["labels"], detr_post["boxes"], p_cfg)
-    prior_tokens, prior_mask = compute_priors(
-        params, boxes, scores, labels, valid, image_sizes,
-        buffers["object_embedding"], cfg, buffers=buffers)
+    with device_range("proposals"):
+        boxes, scores, labels, valid = select_region_proposals(
+            detr_post["scores"], detr_post["labels"], detr_post["boxes"],
+            p_cfg)
+        prior_tokens, prior_mask = compute_priors(
+            params, boxes, scores, labels, valid, image_sizes,
+            buffers["object_embedding"], cfg, buffers=buffers)
     if not cfg.use_insadapter:
         prior_tokens = prior_mask = None
-    feat_global, feat_local = encode_image(
-        params["clip"], images_clip, clip_cfg, prior=prior_tokens,
-        prior_mask=prior_mask, generator=generator)
-    feat_global = feat_global / torch.linalg.vector_norm(
-        feat_global, dim=-1, keepdim=True)
-    if cfg.use_mlp_proj:
-        feat_local = _mlp3(params["mlp_proj"], feat_local)
+    with device_range("clip"):
+        feat_global, feat_local = encode_image(
+            params["clip"], images_clip, clip_cfg, prior=prior_tokens,
+            prior_mask=prior_mask, generator=generator)
+        feat_global = feat_global / torch.linalg.vector_norm(
+            feat_global, dim=-1, keepdim=True)
+        if cfg.use_mlp_proj:
+            feat_local = _mlp3(params["mlp_proj"], feat_local)
 
     dino_feats = None
     if cfg.use_dino and dino_apply is not None:
-        dino_feats = dino_apply(images_clip)
-        dino_feats = dino_feats / torch.linalg.vector_norm(
-            dino_feats, dim=-1, keepdim=True)
+        with device_range("dino"):
+            dino_feats = dino_apply(images_clip)
+            dino_feats = dino_feats / torch.linalg.vector_norm(
+                dino_feats, dim=-1, keepdim=True)
 
-    bh, bo, bu, pair_valid = make_pairs(boxes, valid, p_cfg)
-    grid = feat_local.shape[1]
-    spatial_scale = grid / cfg.clip_resolution
-    fmap = feat_local.permute(0, 3, 1, 2)                   # (B, C, g, g)
-    single = roi_align_mean(fmap, boxes, (7, 7), spatial_scale)
-    union = roi_align_mean(fmap, bu, (7, 7), spatial_scale)
-    # feat_mask_type 0: Dropout(0.2) on the pooled ROI features, in
-    # training only; type 1 skips it
-    if training and cfg.feat_mask_type == 0:
-        single = apply_dropout(single, 0.2, generator)
-        union = apply_dropout(union, 0.2, generator)
+    with device_range("head"):
+        bh, bo, bu, pair_valid = make_pairs(boxes, valid, p_cfg)
+        grid = feat_local.shape[1]
+        spatial_scale = grid / cfg.clip_resolution
+        fmap = feat_local.permute(0, 3, 1, 2)               # (B, C, g, g)
+        single = roi_align_mean(fmap, boxes, (7, 7), spatial_scale)
+        union = roi_align_mean(fmap, bu, (7, 7), spatial_scale)
+        # feat_mask_type 0: Dropout(0.2) on the pooled ROI features, in
+        # training only; type 1 skips it
+        if training and cfg.feat_mask_type == 0:
+            single = apply_dropout(single, 0.2, generator)
+            union = apply_dropout(union, 0.2, generator)
 
-    x_idx, y_idx = pair_indices(p_cfg, boxes.device)
-    hum = _l2(single[:, x_idx])
-    obj = _l2(single[:, y_idx])
-    uni = _l2(union)
+        x_idx, y_idx = pair_indices(p_cfg, boxes.device)
+        hum = _l2(single[:, x_idx])
+        obj = _l2(single[:, y_idx])
+        uni = _l2(union)
 
-    logits = compute_logits(params, buffers, hum, obj, uni, feat_global,
-                            dino_feats, cfg, mesh)
-    prior = compute_prior_scores(scores, labels, pair_valid,
-                                 buffers["object_class_multihot"],
-                                 x_idx, y_idx, training, cfg)
-    if training:
-        return _training_loss(params, buffers, logits, prior, pair_valid,
-                              bh, bo, targets, image_sizes, dino_feats,
-                              gen_sample, cfg, mesh)
-    pp = prior[0] * prior[1]
-    # mask first, so that a non-finite logit cannot leak into a zero-prior
-    # (padding) slot
-    det_scores = torch.where(pp > 0, torch.sigmoid(logits) * pp, 0.0)
-    objects = labels[:, y_idx]                              # (B, P)
-    lut = buffers["verb_lut"][objects]                      # (B, P, Vmax)
-    return dict(boxes=boxes, scores=scores, labels=labels, valid=valid,
-                pair_valid=pair_valid, bh=bh, bo=bo, logits=logits,
-                prior=prior, detection_scores=det_scores, objects=objects,
-                detection_scores_cmp=torch.gather(det_scores, -1, lut)
-                * buffers["verb_lut_valid"][objects],
-                detection_verbs=lut)
+        logits = compute_logits(params, buffers, hum, obj, uni,
+                                feat_global, dino_feats, cfg, mesh)
+        prior = compute_prior_scores(scores, labels, pair_valid,
+                                     buffers["object_class_multihot"],
+                                     x_idx, y_idx, training, cfg)
+        if training:
+            return _training_loss(params, buffers, logits, prior,
+                                  pair_valid, bh, bo, targets, image_sizes,
+                                  dino_feats, gen_sample, cfg, mesh)
+        pp = prior[0] * prior[1]
+        # mask first, so that a non-finite logit cannot leak into a
+        # zero-prior (padding) slot
+        det_scores = torch.where(pp > 0, torch.sigmoid(logits) * pp, 0.0)
+        objects = labels[:, y_idx]                          # (B, P)
+        lut = buffers["verb_lut"][objects]                  # (B, P, Vmax)
+        return dict(boxes=boxes, scores=scores, labels=labels, valid=valid,
+                    pair_valid=pair_valid, bh=bh, bo=bo, logits=logits,
+                    prior=prior, detection_scores=det_scores,
+                    objects=objects,
+                    detection_scores_cmp=torch.gather(det_scores, -1, lut)
+                    * buffers["verb_lut_valid"][objects],
+                    detection_verbs=lut)
 
 
 def _training_loss(params, buffers, logits, prior, pair_valid, bh, bo,

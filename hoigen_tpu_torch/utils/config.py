@@ -130,6 +130,9 @@ class RunConfig:
     # fused cache-scoring kernel (ops/pallas_cache.py, forward + VJP so it
     # serves train and eval). None = auto: on when running on CUDA
     use_pallas_cache: Optional[bool] = None
+    # where the program's tracer writes program_trace.json and
+    # program_trace_summary.json (engine/profiling.py); None: tracing off
+    trace_dir: Optional[str] = None
 
     def save(self, path: str):
         with open(path, "w") as f:
@@ -147,7 +150,8 @@ def add_args(parser: argparse.ArgumentParser,
         elif isinstance(default, list):
             parser.add_argument(name, nargs="+", default=default)
         elif default is None:
-            parser.add_argument(name, type=int, default=None)
+            parser.add_argument(name, type=str if field.type == Optional[str]
+                                else int, default=None)
         else:
             parser.add_argument(name, type=type(default), default=default)
     return parser

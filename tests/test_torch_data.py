@@ -169,14 +169,17 @@ def test_batches_from_factory_refuses_data_parallel(trees, monkeypatch):
 
 
 def test_run_config_matches_jax():
+    """The JAX package's fields and defaults, then the port's own
+    ``trace_dir`` (off by default)."""
     assert [(f.name, f.default) for f in dataclasses.fields(
         tconfig.RunConfig) if f.default is not dataclasses.MISSING] == \
         [(f.name, f.default) for f in dataclasses.fields(jconfig.RunConfig)
-         if f.default is not dataclasses.MISSING]
+         if f.default is not dataclasses.MISSING] + [("trace_dir", None)]
     argv = ["--num-classes", "600", "--zs", "true", "--zs-type",
             "unseen_verb", "--batch-size", "8", "--devices", "2"]
-    assert dataclasses.asdict(tconfig.parse_config(argv)) == \
-        dataclasses.asdict(jconfig.parse_config(argv))
+    assert dataclasses.asdict(tconfig.parse_config(argv)) == dict(
+        dataclasses.asdict(jconfig.parse_config(argv)), trace_dir=None)
+    assert tconfig.parse_config(["--trace-dir", "t"]).trace_dir == "t"
 
 
 def test_samplers_match_jax():

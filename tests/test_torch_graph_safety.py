@@ -29,7 +29,7 @@ from hoigen_tpu_torch.ops import _weights
 from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
 from hoigen_tpu_torch.ops.pixels import IMAGENET_MEAN, IMAGENET_STD
 
-from torch_graph_tools import UnsafeOps, stand_in_cuda
+from torch_graph_tools import UnsafeOps, stand_in_cuda, tracer, tracing
 from torch_port_common import DETR_HW, DETR_KW, eval_configs
 
 def _model(tcfg, num_objects=10, seed=0):
@@ -111,12 +111,15 @@ def test_graphed_on_the_cpu_is_the_eager_step():
     step = thm.make_eval_step(tcfg, device="cpu")
     want = step(params, buffers, batch)
     gstep = cg.graphed(step)
-    for feed in (batch, {k: v.numpy() for k, v in batch.items()}):
-        got = gstep(params, buffers, feed)
-        assert got.keys() == want.keys()
-        for k in want:
-            assert torch.equal(got[k], want[k]), k
-    assert gstep.graphs == {} and gstep.checks == 0
+    with tracing() as tracer:
+        for feed in (batch, {k: v.numpy() for k, v in batch.items()}):
+            got = gstep(params, buffers, feed)
+            assert got.keys() == want.keys()
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+        spans = tracer.snapshot()["spans"]
+    # the leaf walk finds the CPU: nothing staged, captured or replayed
+    assert gstep.graphs == {} and set(spans) == {"graph.check"}
 
 
 class _Launches:
@@ -138,7 +141,7 @@ class _Graph:
         pass
 
 
-def test_capture_replay_and_recapture_bookkeeping(monkeypatch):
+def test_capture_replay_and_recapture_bookkeeping(monkeypatch, tracer):
     fake = _Launches()
     stand_in_cuda(monkeypatch, fake.graph, _Graph)
     monkeypatch.setattr(fused_cache_logits, "launches", 0)
@@ -175,4 +178,8 @@ def test_capture_replay_and_recapture_bookkeeping(monkeypatch):
     gstep(replaced, buffers, batch)
     assert (g.captures, g.replays, fused_cache_logits.launches) == (3, 2, 6)
     assert g.leaves[0] is cg.tensor_leaves((replaced, buffers))[0]
-    assert gstep.checks == 5
+    spans = tracer.snapshot()["spans"]
+    assert spans["graph.check"]["count"] == spans["graph.stage"]["count"] \
+        == 5
+    assert spans["graph.capture"]["count"] == 3 and \
+        spans["graph.replay"]["count"] == 2

@@ -28,7 +28,7 @@ from hoigen_tpu_torch.ops import _weights
 from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
 
 from torch_graph_tools import TapedCapture, TapedGraph, UnsafeOps, \
-    stand_in_cuda
+    stand_in_cuda, tracer, tracing
 from torch_port_common import DETR_HW, eval_configs
 
 LR_DROP = 3
@@ -91,17 +91,20 @@ def test_train_step_is_capture_safe(LA):
 def test_graphed_training_on_the_cpu_is_the_eager_step():
     tcfg = _config()
     runs = []
-    for graphed in (False, True):
-        params, buffers, opt, batch = _model(tcfg)
-        step = thm.make_train_step(tcfg, opt, device="cpu")
-        gstep = cg.GraphedTrainStep(step, opt) if graphed else step
-        losses = [float(gstep(params, buffers, batch,
-                              torch.Generator().manual_seed(i))["loss"])
-                  for i in range(2)]
-        runs.append((losses, _state(params, opt)))
+    with tracing() as tracer:
+        for graphed in (False, True):
+            params, buffers, opt, batch = _model(tcfg)
+            step = thm.make_train_step(tcfg, opt, device="cpu")
+            gstep = cg.GraphedTrainStep(step, opt) if graphed else step
+            losses = [float(gstep(params, buffers, batch,
+                                  torch.Generator().manual_seed(i))["loss"])
+                      for i in range(2)]
+            runs.append((losses, _state(params, opt)))
+        spans = tracer.snapshot()["spans"]
     assert runs[0][0] == runs[1][0] and runs[0][0][0] != runs[0][0][1]
     _same(runs[0][1], runs[1][1])
-    assert gstep.graphs == {} and gstep.checks == 0
+    # the leaf walk finds the CPU: nothing staged, captured or replayed
+    assert gstep.graphs == {} and set(spans) == {"graph.check"}
 
 
 class _Runs:
@@ -147,7 +150,7 @@ class _Runs:
         return self.gstep.graphs[key]
 
 
-def test_replays_are_the_eager_steps(monkeypatch):
+def test_replays_are_the_eager_steps(monkeypatch, tracer):
     """2 + 2 steps across the learning-rate drop (at update 3), dropout
     on from a new generator each epoch: the first call warms up (a real
     step) and captures (no step), every later one replays; losses, every
@@ -184,7 +187,10 @@ def test_replays_are_the_eager_steps(monkeypatch):
     runs.check(seed=None)
     g0 = runs.graph(dropout=False)
     assert (g0.captures, g0.replays, len(runs.gstep.graphs)) == (1, 1, 2)
-    assert runs.gstep.checks == 8
+    # 8 calls: each one's weight check, and each of the 6 replays' bump
+    spans = tracer.snapshot()["spans"]
+    assert spans["graph.stage"]["count"] == 8
+    assert spans["graph.check"]["count"] == 8 + 6
     text = cg.signature_text(cg.signature(runs.batch))
     assert set(runs.gstep.records()) == {text, text + ", dropout"}
 

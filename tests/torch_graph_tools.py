@@ -6,8 +6,10 @@ and torch only, never JAX, so that the multi-process workers
 (``_torch_parallel_worker.py``) use it too.
 """
 import contextlib
+import time
 import traceback
 
+import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -48,12 +50,36 @@ class _Stream:
         pass
 
 
+# the graph being captured by a TapedCapture, whose tape an event
+# recorded during the capture joins
+_TAPING = []
+
+
 class _Event:
-    def record(self):
-        pass
+    """Stand-in for ``torch.cuda.Event``: recording stamps the host clock
+    (and, during a taped capture, joins the tape, so that each replay
+    stamps it again); every event has completed."""
+
+    def __init__(self, enable_timing=False, blocking=False,
+                 interprocess=False, external=False):
+        self.ns = None
+
+    def stamp(self):
+        self.ns = time.perf_counter_ns()
+
+    def record(self, stream=None):
+        self.stamp()
+        if _TAPING:
+            _TAPING[-1].tape.append((self.stamp, (), {}, None))
+
+    def query(self):
+        return True
 
     def synchronize(self):
         pass
+
+    def elapsed_time(self, other):
+        return (other.ns - self.ns) / 1e6
 
 
 def stand_in_cuda(monkeypatch, graph, cuda_graph):
@@ -154,9 +180,35 @@ class TapedCapture:
         self.captured += 1
         for fn in self.counted:
             fn.launches += self.launches
-        with _Tape(graph):
-            yield
+        _TAPING.append(graph)
+        try:
+            with _Tape(graph):
+                yield
+        finally:
+            _TAPING.pop()
         with torch.no_grad():
             for t, s in saved:
                 if not torch.equal(t, s):
                     t.copy_(s)
+
+
+@contextlib.contextmanager
+def tracing(device=None):
+    """The program's tracer on (``engine/profiling.py``; device ranges
+    with a CUDA ``device``) from a clean state while the block runs, off
+    and cleared after. Yields the module."""
+    from hoigen_tpu_torch.engine import profiling
+    profiling.reset()
+    profiling.enable(device)
+    try:
+        yield profiling
+    finally:
+        profiling.disable()
+        profiling.reset()
+
+
+@pytest.fixture
+def tracer():
+    """:func:`tracing` around a test."""
+    with tracing() as t:
+        yield t
