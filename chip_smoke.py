@@ -15,8 +15,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    generator pipeline's crop encodes, batches 256, 64 and 32, K1, K2 and
    K3 at batch 1 (phase 12's one-image step), at phase 11's per-rank
    batch 2 K1 and K2 at phase 7's buckets, the CLIP tower's K1 and K4 and
-   K3 at 117 classes, and K3 on half the cache rows (phase 11's model
-   axis of 2; 600 and 117 classes) (the attention
+   K3 at 117 classes, K3 on half the cache rows (phase 11's model
+   axis of 2; 600 and 117 classes), and the frozen-BN epilogue at the
+   ResNet-50's sites of a batch of 32 on (1344, 1344) planes (bf16 and
+   f32) and of one image, bit for bit (the attention
    backward through its autograd.Function, all four gradients; the CLIP
    attention on the (B, H, L, D) views of (B, L, H, D) buffers that its
    call site passes, bit for bit against contiguous copies, two backward
@@ -42,7 +44,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    both timed in one window with their busy time, idle share and runtime
    calls (the graphed step under 20 kernel launch calls and one graph
    launch a step), the input copy alone, the captures' seconds and pool
-   bytes, the per-call weight check's host time; then a K3 and a K2
+   bytes, the epilogue kernel's launches a replay (one an epilogue
+   site), the per-call weight check's host time; then a K3 and a K2
    weight written in place and a params tree with replaced tensors
    between replays, each replay against a fresh eager step;
 6. check a small training step's loss and gradients on the card against
@@ -61,9 +64,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the count, 2 + 20 steps across the learning-rate drop); both timed in
    one window with their busy time, idle share and runtime calls (the
    graphed step one graph launch and under 20 kernel launch calls a step);
-   the capture's seconds, the pool's bytes, the weight check's host time;
-   an in-place write to a trainable leaf, a ``Trainer.restore`` and a
-   params tree with a replaced tensor, one capture each; the frozen
+   the capture's seconds, the pool's bytes, the epilogue kernel's launches
+   a replay, the weight check's host time; an in-place write to a
+   trainable leaf, a ``Trainer.restore`` and a params tree with a
+   replaced tensor, one capture each; the frozen
    tensors bit-identical; an eval step after graphed training against one
    after eager training;
 6c. on phase 6's configuration with the language-aware term on, in an
@@ -114,17 +118,20 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    pair-embeddings through the device crop encoder and global-caches (128
    images each), then ``main_vae`` and ``finetune_ship`` for each family
    at batch 256 (one epoch, two steps), each run with the counters set to
-   0 just before it; check each run's K1 launches, the losses, the frozen
-   CLIP bit-identical after training and the ``.npz`` files read back;
+   0 just before it; check each run's K1 launches (and global-caches' DINO
+   epilogue launches), the losses, the frozen CLIP bit-identical after
+   training and the ``.npz`` files read back;
    time the encodes (crops/s) and the steps (steps/s); then a small
    configuration on the card and on the CPU (pair features, VAE losses
    and parameters);
 10. run the DETR offline finetune (``cli/train_detr.py``) at the JAX
    CLI's defaults (batch 2, --max-gt 32, aux losses, remat) on phase 7's
    tree from a DETR-R50 file, one epoch, then ``cli/detections.py`` dump,
-   gt and eval; check that no kernel launched, the losses, the first
-   batch's matches against the CPU's on the same outputs and the APs; time
-   the steps and the dump;
+   gt and eval; check that the finetune launched no kernel (autograd
+   records its backbone, whose epilogues stay the ATen chain) and the dump
+   the epilogue kernel alone, once a site of each batch, the losses, the
+   first batch's matches against the CPU's on the same outputs and the
+   APs; time the steps and the dump;
 11. parallelism on one card, at phase 8's flags on phase 7's tree with
    dropout off: the CLI's training epoch and --eval in a NCCL process
    group of one against the same runs without one (bit for bit; the
@@ -141,7 +148,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    rank's slice); each rank's launches;
 12. the remainder: the inference CLI at full width from phase 8's files
    and checkpoint, default, --action K and --action K --failure (6 / 1
-   / 3 launches each, its figures, its one-image step timed), and at a
+   / 3 launches each and one epilogue launch a site of DETR's and DINO's
+   ResNet-50, its figures, its one-image step timed), and at a
    small configuration on the card and on the CPU (the listings line for
    line); ``prepare_data gt-features`` with an RN50 CLIP file and
    ``main_vae`` with an RN101 one on phase 9's tree (no launch, the
@@ -390,6 +398,8 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
     # K2: the four ResNet-50 layer tails of the DETR backbone, and layer1's
     # at phase 7's other planes
     check_chain_kernels(params, b, hi, wi, gen, check, record, feeds)
+    # the frozen-BN epilogue at the ResNet-50 sites of a batch of 32
+    check_epilogue_kernel(records)
 
     # K3: the H cache branch, (B, 450, 512) f32 pair features against the
     # (1200, 512) cache keys and (1200, 600) label matrix
@@ -526,6 +536,126 @@ def check_chain_kernels(params, b, hi, wi, gen, check, record, feeds):
             fail(f"{name}: output {tuple(got.shape)}")
         check(f"{name} ({plan.route}, C {c} -> {plan.c}, M {m} -> "
               f"{plan.m})", got, bottleneck_chain_reference(x, blocks))
+
+
+def resnet_epilogues(fused=()):
+    """The frozen-BN epilogues one ResNet-50 forward runs through
+    ``conv_epilogue`` where autograd records nothing: the stem and 3 a
+    block, less the tail blocks of the layers in ``fused`` (K2's)."""
+    from hoigen_tpu_torch.models.detr.resnet import LAYER_BLOCKS
+    return 1 + 3 * (sum(LAYER_BLOCKS)
+                    - sum(LAYER_BLOCKS[li] - 1 for li in fused))
+
+
+def epilogue_sites(cfg):
+    """The frozen-BN epilogues a step (one detector forward) of the
+    ``HOIModelConfig`` ``cfg`` runs through ``conv_epilogue``: DETR's, less
+    its fused tail, which runs in bf16 only (``detr_forward``), and, with
+    ``use_dino``, DINO's."""
+    fused = cfg.detr.fused_resnet_tail if (
+        cfg.dtype == "bfloat16" and not cfg.detr.remat_backbone) else ()
+    return resnet_epilogues(fused) + (
+        resnet_epilogues() if cfg.upt.use_dino else 0)
+
+
+def expect_epilogues(what, records, cfg):
+    """Fail unless every graph of ``records`` launches the epilogue kernel
+    once an epilogue site a replay."""
+    want = epilogue_sites(cfg)
+    got = {k: r["launches_per_replay"].get("conv_epilogue")
+           for k, r in records.items()}
+    if any(v != want for v in got.values()):
+        fail(f"{what}: conv_epilogue launches a replay {got}, expected "
+             f"{want}")
+    log(f"{what}: conv_epilogue {want} launches a replay in each graph ok")
+
+
+# the epilogue sites of a (1344, 1344) plane: (name, plane (H, W), C, mode)
+EPILOGUE_SITES = (
+    ("stem", (672, 672), 64, "site"),
+    ("layer1_conv1", (336, 336), 64, "site"),
+    ("layer1_end_down", (336, 336), 256, "down"),
+    ("layer2_end", (168, 168), 512, "identity"),
+    ("layer3_end", (84, 84), 1024, "identity"),
+    ("layer4_end", (42, 42), 2048, "identity"))
+
+
+def check_epilogue_kernel(records):
+    """Phase 3, the frozen-BN epilogue kernel (``ops/conv_epilogue.py``)
+    at the main path's sites of a batch of 32 on (1344, 1344) planes, in
+    bf16 and f32, and at batch 1 in bf16: bit for bit against its plain
+    version, the ATen chain it replaces. Timed, against its bound and the
+    ATen chain, from CUDA events: the bf16 sites and the f32 stem at batch
+    32, where the host is far ahead of the card, and the stem at batch 1,
+    which the profiler also reads (its device time alone). Scales are
+    drawn in [0.5, 1] and biases in [-0.5, 0.5], so that a rounding
+    dropped shows and the timed loop, which writes over its input, stays
+    bounded."""
+    import torch
+
+    from hoigen_tpu_torch.ops.conv_epilogue import conv_epilogue, \
+        conv_epilogue_reference
+
+    gen = torch.Generator().manual_seed(7)
+
+    def draw(shape, dtype, lo=-3.0, hi=3.0):
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(
+            "cuda", dtype)
+
+    cases = [(f"conv_epilogue_{name}", 32, hw, c, mode, torch.bfloat16)
+             for name, hw, c, mode in EPILOGUE_SITES]
+    cases += [(f"conv_epilogue_{name}_b1", 1, hw, c, mode, torch.bfloat16)
+              for name, hw, c, mode in EPILOGUE_SITES]
+    cases += [(f"conv_epilogue_{name}_f32", 32, hw, c, mode, torch.float32)
+              for name, hw, c, mode in EPILOGUE_SITES]
+    timed = {name for name, nb, _, _, _, dt in cases
+             if (nb == 32 and dt == torch.bfloat16)
+             or name.startswith("conv_epilogue_stem")}
+    for name, nb, (h, w), c, mode, dt in cases:
+        y = draw((nb, h, w, c), dt)
+        s, b = draw((c,), dt, 0.5, 1.0), draw((c,), dt, -0.5, 0.5)
+        kw = {"site": {}, "identity": {"identity": torch.relu(draw(y.shape,
+                                                                   dt))},
+              "down": {"down": (draw(y.shape, dt), draw((c,), dt, 0.5, 1.0),
+                                draw((c,), dt, -0.5, 0.5))}}[mode]
+        got = conv_epilogue(y.clone(), s, b, **kw)
+        torch.cuda.synchronize()
+        same_bits(f"{name} against its plain version, the ATen chain",
+                  (got,), (conv_epilogue_reference(y, s, b, **kw),))
+        del got
+        if name in timed:
+            scratch = y.clone()
+            # a site reads y and writes out; a block end also reads id
+            n_bytes = (2 if mode == "site" else 3) * nbytes(y) \
+                + 2 * nbytes(s) * (2 if mode == "down" else 1)
+            bound_ms, bound_by = bound(n_bytes, (0.0,))
+            ms = cuda_ms(lambda: conv_epilogue(scratch, s, b, **kw), 20)
+            aten_ms = cuda_ms(
+                lambda: conv_epilogue_reference(y, s, b, **kw), 20)
+            dev_ms = profile_steps(
+                lambda: conv_epilogue(scratch, s, b, **kw), 20)[0] \
+                if nb == 1 else None
+            records.append({
+                "name": name, "route": "cuda",
+                "source": "hoigen_tpu_torch/csrc/conv_epilogue.cu",
+                "replaces": "none: XLA fuses the epilogue into the conv on "
+                            "the TPU",
+                "status": "not a TPU kernel: checked bit for bit",
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": aten_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": aten_ms, "kernel_device_ms": dev_ms,
+                "plain_device_ms": None, "library_device_ms": None,
+                "gb_per_s": n_bytes / ms / 1e6})
+            dev = "" if dev_ms is None else \
+                f"; the profiler's device time {dev_ms:.4f} ms"
+            log(f"kernel {name}: {(nb, h, w, c)} {str(dt)[6:]} {mode}: "
+                f"{n_bytes / 1e9:.3f} GB; events {ms:.4f} ms, "
+                f"{n_bytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of the "
+                f"bound {bound_ms:.4f} ms; the ATen chain {aten_ms:.4f} ms"
+                + dev)
+            del scratch
+        del y, kw
+        torch.cuda.empty_cache()
 
 
 def check_cache_kernel(x, w, b, lab, s, check):
@@ -1355,6 +1485,7 @@ def graph_phase(model, batch, cfg, args, card, gstep):
     profiling.reset()
     check_us = 1e3 * check["per_step_ms"]
     record["graphs"] = gstep.records()
+    expect_epilogues("phase 5b", record["graphs"], cfg)
     record["check_us_per_call"] = check_us
     for key, rec in record["graphs"].items():
         log(f"phase 5b: graph {key}: {rec}")
@@ -2063,6 +2194,7 @@ def train_graph_phase(model, batch, cfg, args, card):
                         f"{record['eval_after_training']}")
 
     record["graphs"] = gstep.records()
+    expect_epilogues("phase 6b", record["graphs"], cfg)
     check = profiling.snapshot()["spans"]["graph.check"]
     profiling.disable()
     profiling.reset()
@@ -2513,6 +2645,8 @@ def cli_phase(args, card, work, ctx):
                              seed=args.seed)
         out, cache_out = (os.path.join(work, d) for d in ("run", "cache"))
         model_cfg = mf.make_model_config(parse_config(CLI_FLAGS))
+        # the frozen-BN epilogues of a detector forward (bf16 towers)
+        epilogues = epilogue_sites(model_cfg)
         t0 = time.perf_counter()
         paths = write_checkpoints(
             os.path.join(work, "ckpt"), model_cfg.clip, model_cfg.detr,
@@ -2554,7 +2688,8 @@ def cli_phase(args, card, work, ctx):
                 steps = result.iteration
                 # K1: 6 in DETR's encoder (bf16) and 12 in CLIP; K3 3 a
                 # step: the CLI's batches carry no generated pairs
-                expect = [18 * steps, 12 * steps, steps, 3 * steps]
+                expect = [18 * steps, 12 * steps, steps, 3 * steps,
+                          epilogues * steps]
                 losses = list(result._losses)
                 if not steps or not all(np.isfinite(losses)) or \
                         not os.path.isfile(os.path.join(
@@ -2573,7 +2708,7 @@ def cli_phase(args, card, work, ctx):
             else:
                 # the test partition at batch args.batch, tail padded
                 n_b = -(-len(EVAL_SIZES) // args.batch)
-                expect = [6 * n_b, 0, n_b, 3 * n_b]
+                expect = [6 * n_b, 0, n_b, 3 * n_b, epilogues * n_b]
                 run["batches"] = n_b
             if mode == "eval":
                 ap = np.asarray(result["ap"])
@@ -2613,7 +2748,8 @@ def cli_phase(args, card, work, ctx):
                 log(f"cli cache: 80 .mat files, {run['mat_rows']} rows ok")
             torch.cuda.empty_cache()
         record["vcoco"] = vcoco_card_and_cpu(mf, work, args.seed, args.batch)
-        ctx.update(argv=argv, data=data, paths=paths, out=out)
+        ctx.update(argv=argv, data=data, paths=paths, out=out,
+                   epilogues=epilogues)
     finally:
         os.chdir(cwd)
     record["seconds"] = time.perf_counter() - t8
@@ -2639,15 +2775,16 @@ GEN_SMALL_TOL = 5e-2        # K1's f32 route rounds q, k and v to bf16
 
 
 def kernel_wrappers():
-    """(names, wrappers) of the four kernels' launch counters."""
+    """(names, wrappers) of the five kernels' launch counters."""
     from hoigen_tpu_torch.ops.attention import attention_bwd, \
         fused_attention
+    from hoigen_tpu_torch.ops.conv_epilogue import conv_epilogue
     from hoigen_tpu_torch.ops.fused_resnet import fused_bottleneck_chain
     from hoigen_tpu_torch.ops.pallas_cache import fused_cache_logits
     return (("attention_fwd", "attention_bwd", "bottleneck_chain_fwd",
-             "cache_logits_fwd"),
+             "cache_logits_fwd", "conv_epilogue"),
             (fused_attention, attention_bwd, fused_bottleneck_chain,
-             fused_cache_logits))
+             fused_cache_logits, conv_epilogue))
 
 
 def counted_run(fn, *args, **kw):
@@ -2687,10 +2824,12 @@ class Recorded:
         setattr(self.module, self.name, self.saved)
 
 
-def expect_launches(what, counts, k1):
-    """Fail unless ``counts`` holds ``k1`` K1 launches and no other."""
+def expect_launches(what, counts, k1, epilogues=0):
+    """Fail unless ``counts`` holds ``k1`` K1 launches, ``epilogues``
+    epilogue launches and no other."""
     want = {"attention_fwd": k1, "attention_bwd": 0,
-            "bottleneck_chain_fwd": 0, "cache_logits_fwd": 0}
+            "bottleneck_chain_fwd": 0, "cache_logits_fwd": 0,
+            "conv_epilogue": epilogues}
     if counts != want:
         fail(f"{what}: launches {counts}, expected {want}")
 
@@ -2906,8 +3045,11 @@ def generator_phase(args, card, work, ctx):
             "global-caches", "--data-root", data, "--clip-model", clip_path,
             "--limit", str(GEN_ENCODE_LIMIT), "--num-classes", "117",
             "--out", caches])
-        expect_launches("global-caches", counts,
-                        per_encode * _math.ceil(GEN_ENCODE_LIMIT / 64))
+        # CLIP's K1 and, under no_grad, DINO's ResNet-50 in f32: one
+        # epilogue launch a site of each batch of 64
+        batches = _math.ceil(GEN_ENCODE_LIMIT / 64)
+        expect_launches("global-caches", counts, per_encode * batches,
+                        resnet_epilogues() * batches)
         z = np.load(caches)
         if z["clip_keys"].shape != (512, 234) or \
                 z["dino_keys"].shape != (2048, 234) or \
@@ -3100,6 +3242,8 @@ def detr_finetune_phase(args, card):
                     "1", "--output-dir", out, "--seed", str(args.seed)])
         finally:
             train_detr.detr_train_step_fns = make_fns
+        # autograd records the finetune's backbone: its epilogues are the
+        # ATen chain, with its gradient, and no kernel launches
         expect_launches("train_detr", counts, 0)
         steps = len(EVAL_SIZES) // 2
         if len(losses) != steps or not all(map(math.isfinite, losses)) or \
@@ -3142,11 +3286,14 @@ def detr_finetune_phase(args, card):
 
         det, gt = (os.path.join(work, d) for d in ("det", "gt"))
         with FunctionTimes(detections, ("dump_detections",)) as dt:
-            _, sec, counts = counted_run(detections.main, [
+            _, sec, dump_counts = counted_run(detections.main, [
                 "dump", "--data-root", data, "--pretrained", pth,
                 "--out-dir", det])
-        expect_launches("detections dump", counts, 0)
+        # the dump's f32 DETR under inference_mode (no fused tail): one
+        # epilogue launch a site of each batch of 8
         n_img = len(EVAL_SIZES)
+        expect_launches("detections dump", dump_counts, 0,
+                        resnet_epilogues() * -(-n_img // 8))
         if len(os.listdir(det)) != n_img:
             fail(f"detections dump: {len(os.listdir(det))} files")
         dump_s = dt.s["dump_detections"]
@@ -3161,12 +3308,12 @@ def detr_finetune_phase(args, card):
             fail(f"detections eval: AP {ap}, GT AP {ap_gt}")
         record["dump"] = {"seconds": sec, "loop_s": dump_s,
                           "images_per_s": n_img / dump_s,
-                          "launches": counts,
+                          "launches": dump_counts,
                           "mAP": float(ap[ap > 0].mean()) if (ap > 0).any()
                           else 0.0, "gt_mAP": 1.0}
         log(f"detr finetune: dump of {n_img} images in {dump_s:.2f} s, "
             f"{n_img / dump_s:.2f} images/s (f32, batch 8; main "
-            f"{sec:.2f} s); launches {counts}; detection mAP "
+            f"{sec:.2f} s); launches {dump_counts}; detection mAP "
             f"{record['dump']['mAP']:.4f} (random weights), the GT files' "
             f"1.0 ok")
     finally:
@@ -3183,8 +3330,9 @@ def detr_finetune_phase(args, card):
 P11_FLAGS = ["--feat-mask-type", "1"]
 P11_TIMEOUT = 600
 # the flagship's one training step (f32 towers): 12 CLIP blocks forward
-# and backward, H/O/U twice (the generated pairs)
-P11_STEP_LAUNCHES = [12, 12, 0, 6]
+# and backward, H/O/U twice (the generated pairs), the frozen-BN epilogues
+# of DETR's and DINO's ResNet-50 (no K2 tail in f32)
+P11_STEP_LAUNCHES = [12, 12, 0, 6, 98]
 # the first update of two ranks against one process's: each leaf's
 # clipped gradient relative to its scale and each group's norm before the
 # clip. The ranks' forward parts from one process's as their eval does
@@ -3508,9 +3656,10 @@ def p11_eval_cause(name, probe, path):
 
 
 def p11_compare(name, ranks, ref, steps, n_b, names, rtol, probe, out,
-                grad_tol):
+                grad_tol, epilogues):
     """Phase 11b's checks of one variant: each rank's launches (K1 and K2
-    run in the DETR tower in bf16 only); the first step's loss (before
+    run in the DETR tower in bf16 only; ``epilogues`` frozen-BN epilogue
+    launches a detector forward); the first step's loss (before
     any update: Adam turns rounding in near-zero gradients into steps of
     the learning rate, so later steps part) within ``rtol`` of one
     process's; the clipped gradients of the first update equal on both
@@ -3542,9 +3691,9 @@ def p11_compare(name, ranks, ref, steps, n_b, names, rtol, probe, out,
                            os.path.join(out, f"eval0_{name}_rank0.pkl"))
     d = int(name == "bf16")
     expect = {"train": [(6 * d + 12) * steps, 12 * steps, d * steps,
-                        3 * steps],
-              "eval": [6 * d * n_b, 0, d * n_b, 3 * n_b],
-              "cache": [6 * d * n_b, 0, d * n_b, 3 * n_b]}
+                        3 * steps, epilogues * steps],
+              "eval": [6 * d * n_b, 0, d * n_b, 3 * n_b, epilogues * n_b],
+              "cache": [6 * d * n_b, 0, d * n_b, 3 * n_b, epilogues * n_b]}
     for r in ranks:
         cli = r[name]
         log(f"parallel {name}: gloo rank {r['rank']} on cuda:{r['device']}: "
@@ -3742,10 +3891,11 @@ def parallel_phase(args, card, work, ctx):
     # towers (TF32 off) 1e-4, 30 times a few f32 roundings
     record["bf16"] = p11_compare("bf16", ranks, ref, steps, n_b, names,
                                  KERNEL_TOL / 2, probes["bf16"], dp_out,
-                                 P11_GRAD_TOL["bf16"])
-    record["f32"] = p11_compare("f32", ranks, ref32, steps, n_b, names,
-                                1e-4, probes["f32"], dp_out,
-                                P11_GRAD_TOL["f32"])
+                                 P11_GRAD_TOL["bf16"], ctx["epilogues"])
+    record["f32"] = p11_compare(
+        "f32", ranks, ref32, steps, n_b, names, 1e-4, probes["f32"], dp_out,
+        P11_GRAD_TOL["f32"],
+        epilogue_sites(mf.make_model_config(parse_config(argv32))))
     del probes
     torch.cuda.empty_cache()
     log(f"parallel: two gloo processes on one card, {record['two_process_s']:.1f}"
@@ -4187,7 +4337,8 @@ def remainder_phase(args, card, cli_ctx, gen_work, gen_ctx, profiling):
                                         else [])))
             (lines, seconds, step_s), _, counts = counted_run(
                 run_inference, inference, argv + extra)
-            if counts != dict(zip(names, (6, 0, 1, 3))):
+            if counts != dict(zip(names, (6, 0, 1, 3,
+                                          cli_ctx["epilogues"]))):
                 fail(f"inference {mode}: launches {counts}")
             if mode == "default":
                 first = next((i for i, line in enumerate(lines)
@@ -4527,9 +4678,11 @@ def main():
         rec["launches_cli"] = {mode: run["launches"].get(rec["name"], 0)
                                for mode, run in cli["runs"].items()}
         # and in phase 9's runs at its shape (every other kernel and
-        # shape launched 0 times there), and phase 10's (no kernel)
+        # shape launched 0 times there), and phase 10's (the dump's
+        # epilogues)
         kernel = next(k for k in ("attention_fwd", "attention_bwd",
-                                  "bottleneck_chain_fwd", "cache_logits_fwd")
+                                  "bottleneck_chain_fwd", "cache_logits_fwd",
+                                  "conv_epilogue")
                       if rec["name"].startswith(k[:12]))
         rec["launches_generator"] = gen_launches.get(rec["name"], {})
         rec["launches_detr_finetune"] = {

@@ -67,13 +67,14 @@ import torch
 
 from ..ops import _weights
 from ..ops.attention import attention_bwd, fused_attention
+from ..ops.conv_epilogue import conv_epilogue
 from ..ops.fused_resnet import fused_bottleneck_chain
 from ..ops.pallas_cache import fused_cache_logits
 from . import profiling
 
 # the kernel wrappers whose ``launches`` counters a replay keeps true
 COUNTED = (fused_attention, attention_bwd, fused_bottleneck_chain,
-           fused_cache_logits)
+           fused_cache_logits, conv_epilogue)
 
 
 def signature(batch):

@@ -8,7 +8,12 @@ JAX package. The unfused convs go to ``torch.nn.functional.conv2d`` on a
 channels-last view (cuDNN on the card), as the JAX package leaves them to
 XLA; ``fused_tail`` routes a layer's stride-1 tail blocks through the fused
 bottleneck-chain kernel (``ops/fused_resnet.py``); ``remat`` recomputes
-each block in the backward. The JAX package's NCHW route
+each block in the backward. Each frozen-BN epilogue (scale and bias, at a
+block's end also the downsample's, the residual add and the ReLU) is one
+pass of ``ops/conv_epilogue.py`` where autograd records nothing (the eval
+and training steps run the towers under ``no_grad``), and its plain
+version, the ATen chain, with its gradient, where it records (the offline
+DETR finetune). The JAX package's NCHW route
 (``DETRConfig.nchw_backbone``, a layout experiment that computes the same
 function) is not ported.
 """
@@ -17,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.conv_epilogue import conv_epilogue, conv_epilogue_reference
 from ...ops.fused_resnet import fused_bottleneck_chain
 from ...ops._weights import cast
 
@@ -32,11 +38,24 @@ def _conv_nhwc(x, w_oihw, stride=1, padding=0):
     return y.permute(0, 2, 3, 1)
 
 
-def _conv_bn_nhwc(x, p, stride=1, padding=0, relu=True):
-    y = _conv_nhwc(x, p["w"], stride, padding)
-    # the epilogue runs in the activation dtype, as in the JAX package
-    y = y * cast(p["scale"], x.dtype) + cast(p["bias"], x.dtype)
-    return torch.relu(y) if relu else y
+def _epilogue(*tensors):
+    """The frozen-BN epilogue for ``tensors``: the kernel's wrapper where
+    autograd records nothing, its plain version (the ATen chain) with its
+    gradient where it records."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return conv_epilogue_reference
+    return conv_epilogue
+
+
+def _bn(y, p):
+    """y and the folded BN's scale and bias of ``p`` in y's dtype (the
+    epilogue runs in the activation dtype, as in the JAX package)."""
+    return y, cast(p["scale"], y.dtype), cast(p["bias"], y.dtype)
+
+
+def _conv_bn_relu_nhwc(x, p, stride=1, padding=0):
+    y, s, b = _bn(_conv_nhwc(x, p["w"], stride, padding), p)
+    return _epilogue(y, s, b)(y.contiguous(), s, b)
 
 
 def _max_pool_3x3_s2_nhwc(x):
@@ -46,12 +65,17 @@ def _max_pool_3x3_s2_nhwc(x):
 
 
 def _bottleneck_nhwc(x, p, stride):
-    out = _conv_bn_nhwc(x, p["conv1"])
-    out = _conv_bn_nhwc(out, p["conv2"], stride=stride, padding=1)
-    out = _conv_bn_nhwc(out, p["conv3"], relu=False)
-    identity = _conv_bn_nhwc(x, p["down"], stride=stride, relu=False) \
-        if "down" in p else x
-    return torch.relu(out + identity)
+    out = _conv_bn_relu_nhwc(x, p["conv1"])
+    out = _conv_bn_relu_nhwc(out, p["conv2"], stride=stride, padding=1)
+    y, s, b = _bn(_conv_nhwc(out, p["conv3"]["w"]), p["conv3"])
+    if "down" in p:
+        # conv3's epilogue, the downsample's and the residual add in one
+        # pass: the downsample's epilogue output is never written
+        yd, sd, bd = _bn(_conv_nhwc(x, p["down"]["w"], stride), p["down"])
+        return _epilogue(y, s, b, yd, sd, bd)(
+            y.contiguous(), s, b, down=(yd.contiguous(), sd, bd))
+    return _epilogue(y, s, b, x)(y.contiguous(), s, b,
+                                 identity=x.contiguous())
 
 
 def _checkpointed(x, p, stride):
@@ -67,7 +91,7 @@ def resnet50_forward_nhwc(params, x, fused_tail=(), remat=False):
     recomputes a block's activations instead of keeping them (the offline
     DETR finetune's memory, as ``jax.checkpoint`` in the JAX package); it
     takes effect only where a gradient is recorded."""
-    x = _conv_bn_nhwc(x, params["stem"], stride=2, padding=3)
+    x = _conv_bn_relu_nhwc(x, params["stem"], stride=2, padding=3)
     x = _max_pool_3x3_s2_nhwc(x)
     block = _checkpointed if remat and torch.is_grad_enabled() \
         else _bottleneck_nhwc

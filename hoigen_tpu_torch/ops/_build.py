@@ -14,7 +14,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-SOURCES = ("attention", "fused_resnet", "cache_logits")
+SOURCES = ("attention", "fused_resnet", "cache_logits", "conv_epilogue")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -155,7 +155,7 @@ def test_capture_replay_and_recapture_bookkeeping(monkeypatch, tracer):
     g = gstep.graphs[cg.signature(batch)]
     assert (fake.captured, g.captures, g.replays) == (1, 1, 0)
     assert fused_cache_logits.launches == 0       # the capture's taken back
-    assert g.deltas == [0, 0, 0, 3]
+    assert g.deltas == [0, 0, 0, 3, 0]
     second = gstep(params, buffers, batch)        # a replay
     assert (g.captures, g.replays, fused_cache_logits.launches) == (1, 1, 3)
     want = step(params, buffers, batch)

@@ -22,9 +22,13 @@ from hoigen_tpu.ops.pallas_cache import _fused_forward as j_cache_forward
 from hoigen_tpu.ops.pallas_cache import \
     fused_cache_logits as j_fused_cache_logits
 
+from hoigen_tpu_torch.engine import cuda_graph
+from hoigen_tpu_torch.models.detr import resnet as t_resnet
 from hoigen_tpu_torch.ops.attention import _attn_plan, _layout_like, \
     _head_dim, _pad_heads, _unpad, attention_bwd, attention_bwd_reference, \
     attention_forward, attention_reference, fused_attention
+from hoigen_tpu_torch.ops.conv_epilogue import conv_epilogue, \
+    conv_epilogue_reference
 from hoigen_tpu_torch.ops.fused_resnet import _chain_plan, \
     bottleneck_chain_reference, fused_bottleneck_chain, pad_chain
 from hoigen_tpu_torch.ops.pallas_cache import _gemm_plan, \
@@ -497,6 +501,173 @@ def test_chain_plan_covers_the_plane_and_fits(b, h, w, c, m, k, route):
             assert alt.smem >= 5 * r0 * 128 + r1 * 128 + stages * 8192
 
 
+# ------------------------------------------------- frozen-BN epilogue
+def _epilogue_inputs(seed, c, dtype, shape=(2, 5, 7)):
+    """A raw conv output y, the block input x, the downsample's raw
+    output yd, and scales and biases drawn so that rounding matters: y of
+    a few units, scales about 1 +- 0.3, biases about 0.5 (so a product's
+    low bits decide how the bias add rounds)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dtype)
+    y, x, yd = (t(rng.normal(scale=3.0, size=shape + (c,)))
+                for _ in range(3))
+    sc, sd = (t(1 + 0.3 * rng.normal(size=c)) for _ in range(2))
+    bi, bd = (t(0.5 * rng.normal(size=c)) for _ in range(2))
+    return y, sc, bi, torch.relu(x), (yd, sd, bd)
+
+
+def _rounded_at_each_point(y, s, b, identity=None, down=None):
+    """The kernel's arithmetic, lane by lane: each product and sum in f32,
+    rounded to y's dtype after the multiply, the bias add and the residual
+    add, then the ReLU."""
+    dt = y.dtype
+
+    def bn(v, s, b):
+        return ((v.float() * s.float()).to(dt).float() + b.float()).to(dt)
+    out = bn(y, s, b)
+    if down is not None:
+        identity = bn(*down)
+    if identity is not None:
+        out = (out.float() + identity.float()).to(dt)
+    return torch.relu(out)
+
+
+EPILOGUE_MODES = ["site", "identity", "down"]
+
+
+def _mode_args(mode, x, down):
+    return {"site": {}, "identity": {"identity": x},
+            "down": {"down": down}}[mode]
+
+
+@pytest.mark.parametrize("mode", EPILOGUE_MODES)
+@pytest.mark.parametrize("c", [64, 256, 2048])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_conv_epilogue_plain_equals_the_aten_chain(dtype, c, mode):
+    """The epilogue's plain version, the ATen chain (and the wrapper on a
+    CPU tensor), in both modes, at a site and at a block end with the block
+    input or the downsample, rounds where the kernel rounds: it equals the
+    kernel's arithmetic (f32 products and sums, rounded after the
+    multiply, the bias add and the residual add) bit for bit."""
+    y, s, b, x, down = _epilogue_inputs(10 + c, c, getattr(torch, dtype))
+    kw = _mode_args(mode, x, down)
+    want = _rounded_at_each_point(y, s, b, **kw)
+    got = conv_epilogue_reference(y, s, b, **kw)
+    assert got.dtype == y.dtype and got.shape == y.shape
+    assert torch.equal(got, want)
+    assert torch.equal(conv_epilogue(y, s, b, **kw), want)
+
+
+def _single_rounding(y, s, b, identity=None, down=None):
+    """What a kernel that drops the rounding points would give: the whole
+    epilogue in a wider type (f32 for bf16, f64 for f32), rounded once."""
+    wide = torch.float64 if y.dtype == torch.float32 else torch.float32
+    out = y.to(wide) * s.to(wide) + b.to(wide)
+    if down is not None:
+        identity = down[0].to(wide) * down[1].to(wide) + down[2].to(wide)
+    if identity is not None:
+        out = out + identity.to(wide)
+    return torch.relu(out.to(y.dtype))
+
+
+@pytest.mark.parametrize("mode", EPILOGUE_MODES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_conv_epilogue_plain_keeps_every_rounding_point(dtype, mode):
+    """On inputs drawn as in the test above, a version that rounds once (as
+    an FMA would, or a kernel that leaves out a rounding point) differs
+    from the plain version, so the kernel's bit-for-bit check would catch
+    such a kernel; the two agree within a few units in the last place of
+    the output's scale."""
+    dt = getattr(torch, dtype)
+    y, s, b, x, down = _epilogue_inputs(20, 256, dt)
+    kw = _mode_args(mode, x, down)
+    plain = conv_epilogue_reference(y, s, b, **kw)
+    once = _single_rounding(y, s, b, **kw)
+    assert not torch.equal(plain, once)
+    ulp = torch.finfo(dt).eps * plain.float().abs().max().item()
+    assert (plain.float() - once.float()).abs().max().item() <= 4 * ulp
+
+
+def test_conv_epilogue_refuses_a_mixed_block_end():
+    """A block end takes the block input or the downsample, not both."""
+    y, s, b, x, down = _epilogue_inputs(3, 64, torch.float32)
+    with pytest.raises(ValueError):
+        conv_epilogue(y, s, b, identity=x, down=down)
+
+
+def _aten_resnet(params, x):
+    """``resnet50_forward_nhwc`` with every epilogue as the ATen chain (no
+    fused tail, no remat)."""
+    def conv_bn(x, p, stride=1, padding=0, relu=True):
+        y = t_resnet._conv_nhwc(x, p["w"], stride, padding)
+        y = y * p["scale"].to(y.dtype) + p["bias"].to(y.dtype)
+        return torch.relu(y) if relu else y
+    x = t_resnet._max_pool_3x3_s2_nhwc(conv_bn(x, params["stem"], 2, 3))
+    for li, blocks in enumerate(params["layers"]):
+        for bi, p in enumerate(blocks):
+            stride = 2 if li > 0 and bi == 0 else 1
+            out = conv_bn(x, p["conv1"])
+            out = conv_bn(out, p["conv2"], stride, 1)
+            out = conv_bn(out, p["conv3"], relu=False)
+            identity = conv_bn(x, p["down"], stride, relu=False) \
+                if "down" in p else x
+            x = torch.relu(out + identity)
+    return x
+
+
+def _varied_resnet(seed):
+    """ResNet-50 parameters whose folded BN is not the identity."""
+    gen = torch.Generator().manual_seed(seed)
+    params = t_resnet.init_resnet50_params(gen)
+    convs = [params["stem"]] + [p for blocks in params["layers"]
+                                for bp in blocks for p in bp.values()]
+    for p in convs:
+        n = p["scale"].shape[0]
+        p["scale"] = 1 + 0.2 * torch.randn(n, generator=gen)
+        p["bias"] = 0.2 * torch.randn(n, generator=gen)
+    return params
+
+
+def test_resnet_epilogues_take_the_aten_chain_where_autograd_records(
+        monkeypatch):
+    """``resnet50_forward_nhwc`` with parameters that require grad, under
+    grad mode (the offline DETR finetune's route), never calls the
+    epilogue wrapper: its output and every gradient equal the ATen chain's
+    bit for bit. Under ``no_grad`` (the towers of the eval and training
+    steps) it calls the wrapper at every epilogue site, 1 + 3 a block
+    (49; 43 with layer1's tail fused, as the DETR tower runs on the card),
+    and gives the same output bit for bit."""
+    from hoigen_tpu_torch.engine.partition import named_leaves
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(kw)
+        return conv_epilogue(*args, **kw)
+    monkeypatch.setattr(t_resnet, "conv_epilogue", counted)
+    params = _varied_resnet(7)
+    x = torch.relu(torch.randn((1, 64, 64, 3),
+                               generator=torch.Generator().manual_seed(8)))
+    leaves = [t.requires_grad_() for _, t in named_leaves(params)]
+    got = t_resnet.resnet50_forward_nhwc(params, x)
+    assert not calls
+    want = _aten_resnet(params, x)
+    assert torch.equal(got, want)
+    for a, b in zip(torch.autograd.grad(got.square().sum(), leaves),
+                    torch.autograd.grad(want.square().sum(), leaves)):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        plain = t_resnet.resnet50_forward_nhwc(params, x)
+        assert len(calls) == 49
+        assert sum("down" in kw for kw in calls) == 4
+        assert sum("identity" in kw for kw in calls) == 12
+        assert torch.equal(plain, want)
+        calls.clear()
+        t_resnet.resnet50_forward_nhwc(params, x, fused_tail=(0,))
+        assert len(calls) == 43
+
+
 # ------------------------------------------------------ K3 cache scoring
 def _cache_inputs():
     rng = np.random.default_rng(11)
@@ -641,7 +812,12 @@ def test_wrappers_count_no_launch_on_the_cpu():
     """The launch counters count CUDA launches only: the plain versions
     that a CPU tensor takes leave them untouched."""
     before = (fused_attention.launches, fused_bottleneck_chain.launches,
-              fused_cache_logits.launches, attention_bwd.launches)
+              fused_cache_logits.launches, attention_bwd.launches,
+              conv_epilogue.launches)
+    assert {fused_attention, attention_bwd, fused_bottleneck_chain,
+            fused_cache_logits, conv_epilogue} <= set(cuda_graph.COUNTED)
+    y, sc, bi, _, _ = _epilogue_inputs(2, 64, torch.bfloat16)
+    conv_epilogue(y, sc, bi)
     x, w, b, l, s = _cache_inputs()
     fused_cache_logits(_t(x), _t(w), _t(b), _t(l), _t(s))
     q = torch.zeros(1, 1, 4, 32, requires_grad=True)
@@ -654,7 +830,8 @@ def test_wrappers_count_no_launch_on_the_cpu():
          "conv3": {"w": torch.zeros(8, 2, 1, 1), "scale": torch.ones(8),
                    "bias": torch.zeros(8)}}])
     assert (fused_attention.launches, fused_bottleneck_chain.launches,
-            fused_cache_logits.launches, attention_bwd.launches) == before
+            fused_cache_logits.launches, attention_bwd.launches,
+            conv_epilogue.launches) == before
 
 
 def test_prepared_weights_are_made_once_and_follow_writes():

@@ -164,7 +164,7 @@ def test_replays_are_the_eager_steps(monkeypatch, tracer):
     losses = [runs.check(seed=s) for s in (7, 8)]
     g = runs.graph()
     assert (runs.capture.captured, g.captures, g.replays) == (1, 1, 1)
-    assert fused_cache_logits.launches == 6 and g.deltas == [0, 0, 0, 6]
+    assert fused_cache_logits.launches == 6 and g.deltas == [0, 0, 0, 6, 0]
     assert len(g.generator.get_state()) and len(g.graph.generators) == 1
     for s in range(9, 11):
         losses.append(runs.check(seed=s))
