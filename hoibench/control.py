@@ -36,7 +36,7 @@ def control_numbers(run, fault="precision"):
     from hoibench import cells as C, compare, model as M, spec, \
         traffic as T
     rc = M.run_config(run.config, run.traffic)
-    cfg = M.model_config(rc, run.device, run.shrink)
+    cfg = M.model_config(run.config, rc, run.device, run.shrink)
     training = run.traffic["mode"] == "train"
     caches = T.make_caches(run.seed, run.config, cfg.upt.num_classes,
                            cfg.upt.num_shot)

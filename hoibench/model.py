@@ -47,12 +47,80 @@ def run_config(config, traffic):
     return parse_config(flags)
 
 
-def model_config(rc, device, shrink=None):
-    """The port's ``HOIModelConfig`` (``make_model_config``); ``shrink``
+def model_config(config, rc, device, shrink=None):
+    """The port's ``HOIModelConfig`` (``make_model_config``), its widths
+    held to the configuration's (:func:`check_widths`); ``shrink`` then
     maps it to a smaller one (the CPU tests only)."""
     from hoigen_tpu_torch.cli.main_finetune import make_model_config
     cfg = make_model_config(rc, device)
+    check_widths(config, cfg)
     return shrink(cfg) if shrink is not None else cfg
+
+
+class WidthsMismatch(ValueError):
+    """A configuration's ``widths`` describe another model than the one
+    the port builds from its flags."""
+
+
+def port_widths(cfg):
+    """{``widths`` key: [(where in the port's ``HOIModelConfig``, value)]}
+    of the model the port builds. A key with two places is held to both:
+    the CLIP tower's resolution and embedding width are read again by the
+    UPT head, and the two have to agree with the file. ``dino_backbone``
+    has no counterpart: the port builds one DINO, a ResNet-50, and the
+    key stays as documentation."""
+    clip, detr, upt = cfg.clip, cfg.detr, cfg.upt
+    adapters = (len(set(clip.adapter_layers) & set(range(clip.vision_layers)))
+                if clip.use_adapter else 0)
+    return {
+        "clip_vision_width": [("clip.vision_width", clip.vision_width)],
+        "clip_vision_layers": [("clip.vision_layers", clip.vision_layers)],
+        "clip_patch": [("clip.vision_patch_size", clip.vision_patch_size)],
+        "clip_resolution": [("clip.image_resolution", clip.image_resolution),
+                            ("upt.clip_resolution", upt.clip_resolution)],
+        "clip_embed_dim": [("clip.embed_dim", clip.embed_dim),
+                           ("upt.visual_output_dim", upt.visual_output_dim)],
+        "adapter_layers": [("clip.adapter_layers (blocks with an adapter)",
+                            adapters)],
+        "adapter_bottleneck": [("clip.adapter_bottleneck",
+                                clip.adapter_bottleneck)],
+        "detr_hidden_dim": [("detr.hidden_dim", detr.hidden_dim)],
+        "detr_enc_layers": [("detr.enc_layers", detr.enc_layers)],
+        "detr_dec_layers": [("detr.dec_layers", detr.dec_layers)],
+        "detr_queries": [("detr.num_queries", detr.num_queries)],
+        "detr_classes": [("detr.num_classes", detr.num_classes)],
+        "num_classes": [("upt.num_classes", upt.num_classes)],
+        "num_shot": [("upt.num_shot", upt.num_shot)],
+    }
+
+
+def check_widths(config, cfg):
+    """Hold every key of the configuration's ``widths`` to the port's
+    ``cfg`` as ``make_model_config`` returns it: the readers count FLOPs
+    and roofline shapes, and ``traffic.make_caches`` sizes the caches,
+    from ``widths`` alone. Raises :class:`WidthsMismatch` naming each key
+    that differs, or that the file lacks or the port has no place for,
+    with the file's value and the port's."""
+    widths = config["widths"]
+    port = port_widths(cfg)
+    wrong = []
+    for key in list(widths) + [k for k in port if k not in widths]:
+        if key == "dino_backbone":
+            continue        # no counterpart: the port's DINO is a ResNet-50
+        if key not in port:
+            wrong.append(f"{key}: {widths[key]!r} in the file, no "
+                         f"counterpart in the port's model")
+        elif key not in widths:
+            wrong.append(f"{key}: missing from the file, the port builds "
+                         + ", ".join(f"{w} {v!r}" for w, v in port[key]))
+        else:
+            wrong += [f"{key}: {widths[key]!r} in the file, the port "
+                      f"builds {where} {got!r}"
+                      for where, got in port[key] if got != widths[key]]
+    if wrong:
+        raise WidthsMismatch(
+            f"configuration {config.get('name')!r}: its widths are not the "
+            f"model the port builds from its flags: " + "; ".join(wrong))
 
 
 def reference_config(cfg):
@@ -136,7 +204,7 @@ def build_program(seed, config, traffic, device, shrink=None):
     from hoigen_tpu_torch.engine.hoi_model import init_hoi_model
     from hoigen_tpu_torch.models.cache import UPTCaches
     rc = run_config(config, traffic)
-    cfg = model_config(rc, device, shrink)
+    cfg = model_config(config, rc, device, shrink)
     clip, detr, dino = tower_weights(seed, reference_config(cfg), config,
                                      device)
     params, buffers = init_hoi_model(

@@ -118,9 +118,10 @@ def detr_flops(h, w, hidden=256, ff=2048, enc=6, dec=6, queries=100,
 
 def clip_flops(width=768, layers=12, patch=16, resolution=224, embed=512,
                bottleneck=64, prior_tokens=30, adapter_layers=12):
-    """(dense flops, the blocks' attention-product flops) of the ViT-B/16
-    image tower with its instance adapters, one image; the adapters'
-    attention over the prior tokens (plain f32) counts as dense."""
+    """(dense flops, the blocks' attention-product flops) of a ViT image
+    tower (ViT-B/16 by default) with its instance adapters on
+    ``adapter_layers`` blocks, one image; the adapters' attention over the
+    prior tokens (plain f32) counts as dense."""
     grid = resolution // patch
     length = grid * grid + 1
     dense = 2 * grid * grid * 3 * patch * patch * width      # patch embed
@@ -149,20 +150,32 @@ def head_flops(num_classes, rows, pairs=450, slots=30, dim=512,
 
 def step_flops(images, hw, training, num_classes, num_shot, widths):
     """{precision: flops} of one step over ``images`` images padded to
-    ``hw``. DETR and DINO run in bf16 and never backward; CLIP in f32 with
-    its attention products in bf16 in training (K1/K4) and in f32 at eval
-    (the plain attention); the head in f32 with the cache products in
-    bf16. The backward counts what the trainable leaves need: the input
-    gradient of every CLIP product (the trainable positional embedding
-    sits below the first block; the adapters' and the projection's weight
-    gradients, under 2% more, are left out, so the count errs low) and
-    the head's input and weight gradients."""
+    ``hw``, at the configuration's ``widths``. DETR and DINO run in bf16
+    and never backward; CLIP in f32 with its attention products in bf16 in
+    training (K1/K4) and in f32 at eval (the plain attention); the head in
+    f32 with the cache products in bf16. The backward counts what the
+    trainable leaves need: the input gradient of every CLIP product (the
+    trainable positional embedding sits below the first block; the
+    adapters' and the projection's weight gradients, under 2% more, are
+    left out, so the count errs low) and the head's input and weight
+    gradients."""
     rows = num_classes * num_shot
-    detr = detr_flops(*hw, classes=widths["detr_classes"])
-    dino, _ = resnet50_flops(224, 224)
-    dense, attn = clip_flops(widths["clip_vision_width"],
-                             widths["clip_vision_layers"])
-    cache, head = head_flops(num_classes, rows)
+    detr = detr_flops(*hw, hidden=widths["detr_hidden_dim"],
+                      enc=widths["detr_enc_layers"],
+                      dec=widths["detr_dec_layers"],
+                      queries=widths["detr_queries"],
+                      classes=widths["detr_classes"])
+    # DINO takes the CLIP stream's frame
+    dino, _ = resnet50_flops(widths["clip_resolution"],
+                             widths["clip_resolution"])
+    dense, attn = clip_flops(
+        widths["clip_vision_width"], widths["clip_vision_layers"],
+        widths["clip_patch"], widths["clip_resolution"],
+        widths["clip_embed_dim"], widths["adapter_bottleneck"],
+        adapter_layers=widths["adapter_layers"])
+    embed = widths["clip_embed_dim"]
+    cache, head = head_flops(num_classes, rows, dim=embed,
+                             prior_in=embed + 5)
     bf16 = detr + dino + cache
     f32 = dense + head
     if training:

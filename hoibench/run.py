@@ -14,8 +14,9 @@ line: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer ones),
 ``device`` and, traced, ``breakdown``, with the numbers compared and their
 limits under ``compared``, last. It exits non-zero, printing no result,
-without enough CUDA cards, and when ``jax``, ``jaxlib``, ``flax`` or
-``hoigen_tpu`` (the JAX package) was imported.
+without enough CUDA cards, when the configuration's ``widths`` are not
+the model the port builds (``model.check_widths``), and when ``jax``,
+``jaxlib``, ``flax`` or ``hoigen_tpu`` (the JAX package) was imported.
 """
 import time
 
@@ -123,7 +124,7 @@ def main(argv=None):
     args = parse(argv)
     import torch
 
-    from hoibench import spec
+    from hoibench import model as M, spec
     cell = spec.Cell(args.workload, ROOT)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < cell.chips:
@@ -131,7 +132,11 @@ def main(argv=None):
               f"card(s); {have} visible", file=sys.stderr)
         return 2
     torch.set_num_threads(4)
-    runs = [run_cell(cell, args)]
+    try:
+        runs = [run_cell(cell, args)]
+    except M.WidthsMismatch as e:
+        print(f"hoibench: {e}", file=sys.stderr)
+        return 4
     found = forbidden_modules()
     if found:
         print("hoibench: the JAX side was imported: " + ", ".join(found),

@@ -12,6 +12,19 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 
+# OpenAI CLIP ViT-L/14@336px (arXiv:2103.00020) as the adapter-CLIP tower,
+# adapters on all of its blocks: the widths a configuration of it gives
+VITL14_336 = {"clip_vision_width": 1024, "clip_vision_layers": 24,
+              "clip_patch": 14, "clip_resolution": 336,
+              "clip_embed_dim": 768, "adapter_layers": 24}
+
+
+def vitl14_336(config):
+    """A copy of a configuration at ViT-L/14@336px widths."""
+    return dict(config, name=config["name"].replace("vitb16", "vitl14-336"),
+                widths=dict(config["widths"], **VITL14_336))
+
+
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "hoibench_card: needs a CUDA card (skips without one)")

@@ -3,12 +3,14 @@ another seed, the same signatures at the same steps for every seed, each
 at its share of the mix's batches, and the port's own plan, bucket and
 padding rules."""
 import collections
+import hashlib
 
 import numpy as np
 import pytest
 
 from hoibench import spec, traffic as T
 from hoibench.model import Caches
+from hoibench.tests.conftest import vitl14_336
 
 
 def pools(seed, workload="hico-rfuc-train-b32", batch=2, pool=2):
@@ -127,3 +129,52 @@ def test_pool_pixels_are_zero_in_the_padding():
         for img, (h, w) in zip(b["images"], b["image_sizes"]):
             assert not img[:, h:, :].any() and not img[:, :, w:].any()
             assert img[:, :h, :w].any()
+
+
+def digest(arrays):
+    """sha256 over each array's name, dtype, shape and bytes, by name."""
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        a = np.ascontiguousarray(arrays[k])
+        for part in (k, str(a.dtype), str(a.shape)):
+            h.update(part.encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+# make_caches' arrays as they stood while the width was the constant 512
+CACHE_DIGESTS = {
+    ("hoigen-vitb16-hicodet-rfuc", 2 ** 31 + 11):
+        "39fb5e5ac4ed1a03972a8af180432741f7ac4876357451f5301580c678c5467a",
+    ("hoigen-vitb16-hicodet-rfuc", 7 * 2 ** 40 + 3):
+        "812a9b738fc091822f67d8891bb1e45b6051eacb4f5703f3006ca3c0347fcf86",
+    ("hoigen-vitb16-vcoco", 2 ** 31 + 11):
+        "858a67dd692dc8dced42e48adf56ab284d22e7abbd2673a0e85c86a61b6a060d",
+    ("hoigen-vitb16-vcoco", 7 * 2 ** 40 + 3):
+        "720be503cd2cf821ba8127e156a55a49d369db334b37ea7225ef2ce752d12bfe",
+}
+FEATURES = ("cache_h", "cache_o", "cache_u", "object_embedding",
+            "origin_text_embeddings")
+
+
+@pytest.mark.parametrize("name, seed", sorted(CACHE_DIGESTS))
+def test_caches_at_512_are_unchanged(name, seed):
+    config = spec.load_json(spec.HERE / "configs" / f"{name}.json")
+    w = config["widths"]
+    caches = T.make_caches(seed, config, w["num_classes"], w["num_shot"])
+    assert caches["cache_h"].shape[1] == w["clip_embed_dim"] == 512
+    assert digest(caches) == CACHE_DIGESTS[name, seed]
+
+
+def test_caches_follow_the_configurations_embedding_width():
+    config = vitl14_336(spec.load_json(
+        spec.HERE / "configs" / "hoigen-vitb16-hicodet-rfuc.json"))
+    caches = T.make_caches(2 ** 31 + 11, config, 117, 2)
+    for k in FEATURES:
+        assert caches[k].shape[1] == 768, k
+        np.testing.assert_allclose(np.linalg.norm(caches[k], axis=1), 1.0,
+                                   rtol=1e-5)
+    keys = caches["clip_global_keys"]
+    assert keys.shape == (768, 234)
+    np.testing.assert_allclose(np.linalg.norm(keys, axis=0), 1.0, rtol=1e-5)
+    assert caches["dino_keys"].shape == (2048, 234)

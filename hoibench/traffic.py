@@ -28,7 +28,6 @@ CROP_RANGE = (384, 600)
 EVAL_MIN_SIDE, MAX_SIDE = 800, 1333
 CLIP_RESOLUTION = 224
 MAX_GT = 32
-FEATURE_DIM = 512
 
 
 def aspect_size(w, h, size, max_size):
@@ -319,11 +318,13 @@ def generated_pairs(rng, b, caches, object_verbs, num_classes):
 def make_caches(seed, config, num_classes, num_shot, num_objects=80):
     """The caches and tables the CLI builds from the pair-embedding pickle,
     the generators and the text tower, drawn from ``seed`` instead: L2-
-    normalised rows of every cache, one class a row, the configuration's
-    object-verb table. -> a dict of numpy arrays (the harness wraps it in
-    the port's ``UPTCaches``)."""
+    normalised rows of every cache, one class a row, at the width of the
+    configuration's CLIP embedding (``widths["clip_embed_dim"]``), and the
+    configuration's object-verb table. -> a dict of numpy arrays (the
+    harness wraps it in the port's ``UPTCaches``)."""
     rng = np.random.default_rng([seed, 3])
     r = num_classes * num_shot
+    dim = config["widths"]["clip_embed_dim"]
 
     def unit(*s):
         x = rng.standard_normal(s).astype(np.float32)
@@ -334,14 +335,14 @@ def make_caches(seed, config, num_classes, num_shot, num_objects=80):
     m = np.zeros((num_objects, num_classes), np.float32)
     for o, vs in enumerate(config["object_verbs"]):
         m[o, vs] = 1.0
-    return dict(cache_h=unit(r, FEATURE_DIM), cache_o=unit(r, FEATURE_DIM),
-                cache_u=unit(r, FEATURE_DIM), one_hots=one_hots,
+    # the draws keep this order: at 512 a seed's caches stay as they were
+    return dict(cache_h=unit(r, dim), cache_o=unit(r, dim),
+                cache_u=unit(r, dim), one_hots=one_hots,
                 sample_lens=one_hots.sum(0),
-                clip_global_keys=np.ascontiguousarray(
-                    unit(r, FEATURE_DIM).T),
+                clip_global_keys=np.ascontiguousarray(unit(r, dim).T),
                 dino_keys=np.ascontiguousarray(unit(r, 2048).T),
                 object_class_multihot=m,
-                object_embedding=unit(num_objects, FEATURE_DIM),
-                origin_text_embeddings=unit(num_classes, FEATURE_DIM),
+                object_embedding=unit(num_objects, dim),
+                origin_text_embeddings=unit(num_classes, dim),
                 clip_global_values=one_hots.copy(),
                 dino_values=one_hots.copy())
