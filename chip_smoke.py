@@ -15,10 +15,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    generator pipeline's crop encodes, batches 256, 64 and 32, K1, K2 and
    K3 at batch 1 (phase 12's one-image step), at phase 11's per-rank
    batch 2 K1 and K2 at phase 7's buckets, the CLIP tower's K1 and K4 and
-   K3 at 117 classes, K3 on half the cache rows (phase 11's model
-   axis of 2; 600 and 117 classes), and the frozen-BN epilogue at the
-   ResNet-50's sites of a batch of 32 on (1344, 1344) planes (bf16 and
-   f32) and of one image, bit for bit (the attention
+   K3 at 117 classes, K1 and K4 at the ViT-L/14@336px tower's (32, 16,
+   577, 64) and K3 over its 768-wide rows, K3 on half the cache rows
+   (phase 11's model axis of 2; 600 and 117 classes), and the frozen-BN
+   epilogue at the ResNet-50's sites of a batch of 32 on (1344, 1344)
+   planes (bf16 and f32) and of one image, bit for bit (the attention
    backward through its autograd.Function, all four gradients; the CLIP
    attention on the (B, H, L, D) views of (B, L, H, D) buffers that its
    call site passes, bit for bit against contiguous copies, two backward
@@ -282,26 +283,11 @@ def ptxas_report(log_text):
 
 
 # ----------------------------------------------------------------- kernels
-def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
-    """Phase 3: each kernel against its plain version at the main path's
-    shapes and weights. Returns the kernel records without ``launches``."""
-    import torch
-    import torch.nn.functional as F
-
-    from hoigen_tpu_torch.models.detr.model import downsample_mask
-    from hoigen_tpu_torch.ops.attention import attention_reference, \
-        fused_attention
-    from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
-        fused_cache_logits
-    from hoigen_tpu_torch.ops.pixels import pad_mask_from_sizes
-
-    params, buffers = model
-    dev = batch["images"].device
-    gen = torch.Generator().manual_seed(1)
-    bf16 = torch.bfloat16
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    b, _, hi, wi = batch["images"].shape
-    records = []
+def kernel_checks(records):
+    """(check, record) of phase 3: ``check(name, got, want)`` holds a
+    kernel's outputs to its plain version's; ``record(...)`` checks, times
+    the kernel, its plain version and one library call computing the same
+    function, and appends the kernel's record to ``records``."""
 
     def check(name, got, want):
         """Max abs error of got against want (tensors, or tuples of
@@ -351,6 +337,31 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "kernel_device_ms": dev_ms,
             "plain_device_ms": plain_dev, "library_device_ms": library_dev})
+
+    return check, record
+
+
+def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes and weights. Returns the kernel records without ``launches``."""
+    import torch
+    import torch.nn.functional as F
+
+    from hoigen_tpu_torch.models.detr.model import downsample_mask
+    from hoigen_tpu_torch.ops.attention import attention_reference, \
+        fused_attention
+    from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
+        fused_cache_logits
+    from hoigen_tpu_torch.ops.pixels import pad_mask_from_sizes
+
+    params, buffers = model
+    dev = batch["images"].device
+    gen = torch.Generator().manual_seed(1)
+    bf16 = torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    b, _, hi, wi = batch["images"].shape
+    records = []
+    check, record = kernel_checks(records)
 
     # K1: the DETR encoder's self-attention, (B, 8, 25*42, 32) bf16, with
     # the key bias of the batch's padding at the C5 stride
@@ -430,6 +441,7 @@ def check_kernels(model, batch, cfg, train_model, train_cfg, clock_hz):
     check_cache_kernel(feats, w, bb, lab, s, check)
     check_training_kernels(train_model, train_cfg, b, n_sm, clock_hz, check,
                            record)
+    check_vitl14_kernels(n_sm, clock_hz, check, record)
     check_new_shapes(model, batch, cfg, train_model, n_sm, clock_hz, check,
                      record)
     return records
@@ -1050,6 +1062,69 @@ def check_training_kernels(model, cfg, b, n_sm, clock_hz, check, record):
            (2 * rows * w.shape[0] * (w.shape[1] + lab.shape[1])
             / BF16_TC_FLOPS,), iters=50)
 
+
+
+def check_vitl14_kernels(n_sm, clock_hz, check, record):
+    """Phase 3, the kernels at the ViT-L/14@336px tower's training shapes
+    (``--clip-model ViT-L/14@336px`` at the batch of 32 of the cell
+    ``hico-rfuc-vitl14-train-b32``): K1's f32 route and K4 at (32, 16,
+    577, 64) in the call site's layout, timed beside SDPA and its
+    backward, with phase 3's layout checks at that shape; K3 at the
+    training step's 117 classes and two shots over 768-wide rows, for
+    its proposals and its generated pairs, timed beside its two bf16
+    matmuls."""
+    import torch
+
+    from hoigen_tpu_torch.engine.hoi_model import HOIModelConfig
+    from hoigen_tpu_torch.models.cache import random_caches
+    from hoigen_tpu_torch.models.clip.config import VIT_L14_336
+    from hoigen_tpu_torch.ops.pallas_cache import cache_logits_reference, \
+        fused_cache_logits, kernel_operands
+
+    b, bf16 = 32, torch.bfloat16
+    cfg = HOIModelConfig(clip=VIT_L14_336)
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, dout = clip_attention_inputs(cfg, b, gen)
+    log(f"kernels at the ViT-L/14@336px tower: attention {tuple(q.shape)} "
+        "f32")
+    record_clip_attention(q, k, v, dout, "_vitl14", n_sm, clock_hz, record)
+    check_attention_layouts(q, k, v, dout, check)
+    del q, k, v, dout
+
+    # K3: the H cache branch over the 768-wide cache rows, at the step's
+    # proposals and at its generated pairs (one an image)
+    caches = random_caches(117, 2, dim=VIT_L14_336.embed_dim, seed=5)
+    w = torch.as_tensor(caches.cache_h).cuda()
+    bb = (0.1 * torch.randn(w.shape[0], generator=gen) - 1.0).cuda()
+    lab = torch.as_tensor(caches.one_hots).float().cuda()
+    s = torch.as_tensor(caches.sample_lens).float().cuda()
+    w16, lt16, s_pad = kernel_operands(w, lab, s)
+    lab16 = lab.to(bf16)
+    for n_pairs, suffix in ((cfg.upt.proposals.n_pairs, ""), (1, "_gen")):
+        feats = torch.randn((b, n_pairs, VIT_L14_336.embed_dim),
+                            generator=gen)
+        feats = (feats / feats.norm(dim=-1, keepdim=True)).cuda()
+
+        def two_matmuls():
+            phi = torch.matmul(feats.to(bf16), w16.t()).float() + bb
+            return torch.matmul(phi.to(bf16), lab16).float() / s
+
+        rows = b * n_pairs
+        log(f"kernels at the ViT-L/14@336px tower: cache scoring "
+            f"{tuple(feats.shape)} against {tuple(w.shape)} rows, "
+            f"{lab.shape[1]} classes")
+        record(f"cache_logits_fwd_c117_d768{suffix}",
+               "hoigen_tpu_torch/csrc/cache_logits.cu",
+               "hoigen_tpu/ops/pallas_cache.py:44",
+               fused_cache_logits(feats, w, bb, lab, s),
+               cache_logits_reference(feats, w, bb, lab, s, bf16),
+               lambda: fused_cache_logits(feats, w, bb, lab, s),
+               lambda: cache_logits_reference(feats, w, bb, lab, s, bf16),
+               two_matmuls,
+               # the kernel reads W and the padded L^T as bf16
+               nbytes(feats, w16, bb, lt16, s_pad) + rows * lab.shape[1] * 4,
+               (2 * rows * w.shape[0] * (w.shape[1] + lab.shape[1])
+                / BF16_TC_FLOPS,), iters=50)
 
 
 def check_new_shapes(model, batch, cfg, train_model, n_sm, clock_hz, check,

@@ -112,15 +112,15 @@ def main(argv=None, device=None):
     import argparse
     import dataclasses
 
-    from ..data.factory import DataFactory, collate_batch
+    from ..data.factory import collate_batch
     from ..engine.checkpoint import latest_checkpoint
     from ..engine.hoi_model import init_hoi_model, make_eval_step, \
         resolve_device, to_device
     from ..engine.train import load_trainable
     from ..models.clip.model import init_clip_params
     from ..utils.config import RunConfig, add_args
-    from .main_finetune import build_caches, load_pretrained, \
-        make_model_config, maybe_gen_features
+    from .main_finetune import build_caches, data_factory, \
+        load_pretrained, make_model_config, maybe_gen_features
 
     parser = argparse.ArgumentParser(
         description="hoigen_tpu_torch: inference on one image")
@@ -140,9 +140,8 @@ def main(argv=None, device=None):
     import torch
     dev = resolve_device(device)
     model_cfg = make_model_config(cfg, dev)
-    factory = DataFactory(cfg.dataset, "test2015" if cfg.dataset == "hicodet"
-                          else "test", cfg.data_root, training=False,
-                          host_clip_stream=cfg.host_clip_stream)
+    factory = data_factory(cfg, model_cfg, "test2015"
+                           if cfg.dataset == "hicodet" else "test")
     gen = torch.Generator().manual_seed(cfg.seed)
     clip_params, detr_params, dino_params = load_pretrained(cfg, model_cfg,
                                                             gen)

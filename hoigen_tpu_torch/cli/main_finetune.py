@@ -35,6 +35,7 @@ evaluation loops; :func:`main` runs from a :class:`RunConfig`
 under the program's tracer (:func:`traced`).
 """
 import contextlib
+import dataclasses
 import json
 import os
 import random
@@ -57,7 +58,7 @@ from ..engine.train import Trainer, load_trainable
 from ..labels import HICO, VCOCO_LABELS
 from ..models.cache import UPTCaches, build_gen_cache, build_pair_cache, \
     load_pair_annotations, random_caches, refresh_unseen_cache
-from ..models.clip.config import CLIPConfig, VIT_B16
+from ..models.clip.config import CLIPConfig, clip_model
 from ..models.clip.model import encode_text, init_clip_params
 from ..models.clip.tokenizer import tokenize
 from ..models.convert_upt import load_torch_file
@@ -70,6 +71,28 @@ from ..parallel import gather_pyobj, global_mesh, init_distributed, \
 from ..utils.config import RunConfig, parse_config
 
 
+def data_factory(cfg: RunConfig, model_cfg: HOIModelConfig, partition,
+                 training=False):
+    """The run's ``DataFactory`` over ``partition``, its CLIP stream at the
+    frame of the tower the model runs; a training one filters to the
+    zero-shot split and draws from the run's seed."""
+    train = dict(zero_shot=cfg.zs, zs_type=cfg.zs_type,
+                 num_classes=cfg.num_classes, seed=cfg.seed) \
+        if training else {}
+    return DataFactory(cfg.dataset, partition, cfg.data_root,
+                       training=training,
+                       clip_resolution=model_cfg.upt.clip_resolution,
+                       max_gt_pairs=cfg.max_gt_pairs,
+                       host_clip_stream=cfg.host_clip_stream, **train)
+
+
+def _other_clip(cfg: RunConfig, error):
+    """The refusal of a CLIP checkpoint whose sizes are not ``--clip-model``'s
+    (``models/clip/convert.py::check_shapes``), naming the flag and file."""
+    return ValueError(f"--clip-model {cfg.clip_model}: "
+                      f"{cfg.clip_model_path}: {error}")
+
+
 def load_pretrained(cfg: RunConfig, model_cfg: HOIModelConfig, gen):
     """(clip, detr, dino) parameters on the CPU converted from the torch
     checkpoints that exist; None for each that is missing (random init
@@ -80,10 +103,13 @@ def load_pretrained(cfg: RunConfig, model_cfg: HOIModelConfig, gen):
         from ..models.clip.convert import torch_state_dict_to_params
         obj = load_torch_file(cfg.clip_model_path)
         sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
-        clip_params, _ = torch_state_dict_to_params(
-            dict(sd), cfg=model_cfg.clip, use_adapter=cfg.use_insadapter,
-            adapter_pos=cfg.adapter_pos,
-            adapter_num_layers=cfg.adapter_num_layers, gen=gen)
+        try:
+            clip_params, _ = torch_state_dict_to_params(
+                dict(sd), cfg=model_cfg.clip,
+                use_adapter=cfg.use_insadapter, adapter_pos=cfg.adapter_pos,
+                adapter_num_layers=cfg.adapter_num_layers, gen=gen)
+        except ValueError as e:
+            raise _other_clip(cfg, e) from None
         print(f"[load] CLIP weights from {cfg.clip_model_path}")
     else:
         print(f"[warn] CLIP checkpoint missing ({cfg.clip_model_path}); "
@@ -193,12 +219,14 @@ def build_caches(cfg: RunConfig, clip_params, model_cfg, train_factory):
             anno, num_classes, cfg.num_shot,
             HICO.object_n_verb_to_interaction, obj_to_verb,
             filtered_hoi_idx=filtered, use_multi_hot=cfg.use_multi_hot,
-            label_choice=cfg.label_choice, num_anno=num_anno, seed=cfg.seed)
+            label_choice=cfg.label_choice, num_anno=num_anno, seed=cfg.seed,
+            dim=model_cfg.clip.embed_dim)
         print(f"[cache] pair cache from {cfg.file1}")
     else:
         print(f"[warn] pair-embedding pkl missing ({cfg.file1}); random "
               "cache")
-        rc = random_caches(num_classes, cfg.num_shot)
+        rc = random_caches(num_classes, cfg.num_shot,
+                           dim=model_cfg.clip.embed_dim)
         pair = type("P", (), dict(cache_h=rc.cache_h, cache_o=rc.cache_o,
                                   cache_u=rc.cache_u, one_hots=rc.one_hots,
                                   sample_lens=rc.sample_lens,
@@ -238,7 +266,8 @@ def build_caches(cfg: RunConfig, clip_params, model_cfg, train_factory):
             loaded = True
             print(f"[cache] global caches from {npz}")
     if not loaded:
-        rc = random_caches(num_classes, cfg.num_shot, seed=cfg.seed)
+        rc = random_caches(num_classes, cfg.num_shot, seed=cfg.seed,
+                           dim=model_cfg.clip.embed_dim)
         clip_keys, dino_keys = rc.clip_global_keys, rc.dino_keys
         clip_values, dino_values = rc.clip_global_values, rc.dino_values
         print("[warn] global caches not found; random placeholders")
@@ -315,8 +344,9 @@ def maybe_gen_features(cfg: RunConfig, clip_params, model_cfg, pair):
         else:
             g = torch.Generator().manual_seed(
                 cfg.seed * 1_000_003 + 1_000 + fi)
-            gen_p = G.init_generator_params(g)
-            ctx = G.init_prompt_ctx(g, n_ctx)
+            gen_p = G.init_generator_params(g, model_cfg.clip.embed_dim)
+            ctx = G.init_prompt_ctx(g, n_ctx,
+                                    model_cfg.clip.transformer_width)
             mlp = None
             print(f"[warn] generator ckpt missing for {fam}; random init")
         fams[fam] = G.GeneratorFamily(
@@ -336,24 +366,27 @@ def maybe_gen_features(cfg: RunConfig, clip_params, model_cfg, pair):
 
 
 def make_model_config(cfg: RunConfig, device=None) -> HOIModelConfig:
-    """The model configuration of a run. ``use_pallas_cache`` None turns
-    the fused cache scoring on where the run's device (None: CUDA) is a
-    CUDA device, as the JAX CLI turns it on on a TPU."""
+    """The model configuration of a run: the CLIP tower ``--clip-model``
+    names (``models/clip/config.py::CLIP_MODELS``), whose resolution and
+    embedding the UPT head takes. ``use_pallas_cache`` None turns the
+    fused cache scoring on where the run's device (None: CUDA) is a CUDA
+    device, as the JAX CLI turns it on on a TPU."""
     num_detr_classes = 81 if cfg.dataset == "hicodet" else 92
     use_pallas_cache = (
         torch.device("cuda" if device is None else device).type == "cuda"
         if cfg.use_pallas_cache is None else cfg.use_pallas_cache)
+    tower = clip_model(cfg.clip_model)
     if cfg.use_insadapter:
         # adapter placement and depth (--adapter_pos, --adapter_num_layers,
-        # CLIP_models_adapter_prior2.py:958-967); 'random' draws from the
-        # run's seed
-        clip_cfg = CLIPConfig(
-            adapter_layers=CLIPConfig.adapter_layer_ids(
-                cfg.adapter_pos, VIT_B16.vision_layers,
+        # CLIP_models_adapter_prior2.py:958-967) over the tower's blocks;
+        # 'random' draws from the run's seed
+        clip_cfg = dataclasses.replace(
+            tower, adapter_layers=CLIPConfig.adapter_layer_ids(
+                cfg.adapter_pos, tower.vision_layers,
                 rng=random.Random(cfg.seed)),
             adapter_num_layers=cfg.adapter_num_layers)
     else:
-        clip_cfg = CLIPConfig(use_adapter=False)
+        clip_cfg = dataclasses.replace(tower, use_adapter=False)
     return HOIModelConfig(
         clip=clip_cfg,
         detr=DETRConfig(num_classes=num_detr_classes),
@@ -379,7 +412,9 @@ def make_model_config(cfg: RunConfig, device=None) -> HOIModelConfig:
                 max_instances=cfg.max_instances),
             max_gt_pairs=cfg.max_gt_pairs,
             generate_feature=cfg.generate_feature and not cfg.eval
-            and not cfg.cache),
+            and not cfg.cache,
+            clip_resolution=clip_cfg.image_resolution,
+            visual_output_dim=clip_cfg.embed_dim),
         dtype=cfg.dtype)
 
 
@@ -455,16 +490,21 @@ def eval_batches(eval_step, params, buffers, factory, cfg: RunConfig):
         yield prev
 
 
-def _import_reference(cfg, params, buffers, pair, dev):
+def _import_reference(cfg, model_cfg, params, buffers, pair, dev):
     """``--resume`` of a reference torch checkpoint: the towers and the
     UPT head through the converters (``models/convert_upt.py``). ->
     (params, buffers) on ``dev``, trainable leaves marked again."""
+    from ..models.clip.convert import check_shapes, infer_config
     from ..models.convert_upt import load_reference_checkpoint
     clip_base_sd = None
     if cfg.clip_model_path and os.path.exists(cfg.clip_model_path):
         obj = load_torch_file(cfg.clip_model_path)
         clip_base_sd = obj.state_dict() if hasattr(obj, "state_dict") \
             else obj
+        try:
+            check_shapes(infer_config(clip_base_sd), model_cfg.clip)
+        except ValueError as e:
+            raise _other_clip(cfg, e) from None
     upt, buffers, detr_p, dino_p = load_reference_checkpoint(
         cfg.resume, dict(params["upt"]), dict(buffers), pair.counts,
         cfg.num_shot, cfg.cache_model, clip_base_sd=clip_base_sd,
@@ -482,13 +522,18 @@ def traced(cfg: RunConfig, dev, primary=True):
     tracer (``engine/profiling.py``; device ranges on a CUDA ``dev``),
     then ``program_trace.json`` (a Chrome trace of its spans, device
     ranges and idle gaps) and ``program_trace_summary.json`` (their
-    snapshot) written under it. A graph captured before the block holds
-    no device ranges."""
+    snapshot, which names the CLIP tower) written under it. A graph
+    captured before the block holds no device ranges."""
     if not (cfg.trace_dir and primary):
         yield
         return
     profiling.reset()
     profiling.enable(dev)
+    # the tower --clip-model names, over this process's share of a batch
+    tower = clip_model(cfg.clip_model)
+    profiling.tower(cfg.clip_model, tower.vision_layers,
+                    cfg.batch_size // process_count()
+                    * (tower.grid_size ** 2 + 1))
     try:
         yield
         os.makedirs(cfg.trace_dir, exist_ok=True)
@@ -547,12 +592,8 @@ def _main(cfg: RunConfig, dev, multi):
         cfg.partitions = ["train2015", "test2015"]
     else:
         cfg.partitions = ["trainval", "test"]
-    train_factory = DataFactory(cfg.dataset, cfg.partitions[0],
-                                cfg.data_root, training=True,
-                                zero_shot=cfg.zs, zs_type=cfg.zs_type,
-                                num_classes=cfg.num_classes,
-                                max_gt_pairs=cfg.max_gt_pairs, seed=cfg.seed,
-                                host_clip_stream=cfg.host_clip_stream)
+    train_factory = data_factory(cfg, model_cfg, cfg.partitions[0],
+                                 training=True)
     if cfg.training_set_ratio < 0.9:
         # random-subset training (main_tip_finetune.py:368-372), permuted
         # from cfg.seed
@@ -562,10 +603,7 @@ def _main(cfg: RunConfig, dev, multi):
         train_factory.keep = [train_factory.keep[i] for i in perm[:n]]
         print(f"[INFO] using {cfg.training_set_ratio} of the train set "
               f"({n} images)")
-    test_factory = DataFactory(cfg.dataset, cfg.partitions[1],
-                               cfg.data_root, training=False,
-                               max_gt_pairs=cfg.max_gt_pairs,
-                               host_clip_stream=cfg.host_clip_stream)
+    test_factory = data_factory(cfg, model_cfg, cfg.partitions[1])
 
     clip_params, detr_params, dino_params = load_pretrained(
         cfg, model_cfg, gen)
@@ -603,7 +641,8 @@ def _main(cfg: RunConfig, dev, multi):
         else ""
     if cfg.resume.endswith((".pt", ".pth")) and os.path.isfile(cfg.resume) \
             and not base.startswith("ckpt_"):
-        params, buffers = _import_reference(cfg, params, buffers, pair, dev)
+        params, buffers = _import_reference(cfg, model_cfg, params, buffers,
+                                            pair, dev)
         print(f"[load] imported reference torch checkpoint {cfg.resume}")
         cfg.resume = ""           # the port's own resume below is bypassed
 

@@ -31,6 +31,8 @@ one flag check: no allocation, no clock read, nothing added to a graph.
   anchor). The **idle gap between steps** is the device time from one
   step's last event to the next step's first; each gap is put down to the
   innermost span open at its midpoint, or to ``host:other``.
+- The **image tower** of the traced run (:func:`tower`): its name, its
+  blocks and the tokens a step gives it, set once where tracing starts.
 
 :func:`snapshot` sums it all up by name, :func:`write` writes a Chrome
 trace of spans, ranges and gaps. Spans are kept for the thread that
@@ -242,8 +244,16 @@ class Tracer:
         self._ranges = _Log()
         self._open = []
         self._pending = []
+        self._tower = None
         if self._anchor is not None:
             self._take_anchor()
+
+    def tower(self, name, layers, tokens_per_step):
+        """Every step of the traced run runs the image tower ``name`` of
+        ``layers`` blocks over ``tokens_per_step`` tokens (batch x
+        sequence): :meth:`snapshot`'s ``tower``, until :meth:`reset`."""
+        self._tower = {"name": name, "layers": layers,
+                       "tokens_per_step": tokens_per_step}
 
     def _take_anchor(self):
         torch.cuda.synchronize(self.device)
@@ -347,8 +357,8 @@ class Tracer:
         also ``self_ms``, its total less its children's), ``gaps``
         ({count: consecutive steps, total_ms, mean_ms, by_span: {name:
         ms}, within_ms: a step's device time inside its extent that no
-        range covers}) and ``counters`` (``steps`` with ranges,
-        ``waits``)."""
+        range covers}), ``tower`` (:meth:`tower`; None if not set) and
+        ``counters`` (``steps`` with ranges, ``waits``)."""
         self._read_all()
         spans = [s for s in self._spans if s.end is not None]
         by_span = {}
@@ -377,6 +387,7 @@ class Tracer:
                        "by_span": by_span,
                        "within_ms": uncovered(self._ranges) / 1e6
                        / max(steps, 1)}
+        out["tower"] = self._tower
         out["counters"] = {"steps": steps, "waits": self.waits}
         return out
 
@@ -409,6 +420,7 @@ class Tracer:
 TRACER = Tracer()
 span = TRACER.span
 device_range = TRACER.device_range
+tower = TRACER.tower
 next_step = TRACER.next_step
 capturing = TRACER.capturing
 replayed = TRACER.replayed

@@ -15,8 +15,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..eval.association import box_iou
+from .clip.config import VIT_B16
 
-FEATURE_DIM = 512
+# the rows' width where nothing else gives it: the CLIP embedding of the
+# default tower (the CLI hands the builders its tower's ``embed_dim``)
+FEATURE_DIM = VIT_B16.embed_dim
 
 
 @dataclasses.dataclass
@@ -36,11 +39,11 @@ class UPTCaches:
     cache_u: np.ndarray
     one_hots: np.ndarray
     sample_lens: np.ndarray
-    clip_global_keys: np.ndarray          # (512, C*num_shot)
+    clip_global_keys: np.ndarray          # (D, C*num_shot), D the embedding
     dino_keys: np.ndarray                 # (2048, C*num_shot)
     object_class_multihot: np.ndarray     # (num_objects, C)
-    object_embedding: np.ndarray          # (num_objects, 512)
-    origin_text_embeddings: np.ndarray    # (C, 512)
+    object_embedding: np.ndarray          # (num_objects, D)
+    origin_text_embeddings: np.ndarray    # (C, D)
     # per-image verb multi-hots co-selected with the keys; None -> the
     # pair-cache one_hots (the reference's runtime behaviour)
     clip_global_values: Optional[np.ndarray] = None   # (C*num_shot, C)
@@ -111,12 +114,13 @@ def build_pair_cache(annotation: dict, num_classes: int, num_shot: int,
                      use_multi_hot: bool = True,
                      label_choice: str = "random",
                      num_anno: Optional[Sequence] = None,
-                     seed: int = 0) -> PairCache:
+                     seed: int = 0, dim: int = FEATURE_DIM) -> PairCache:
     """Group per-pair CLIP crop features by class, select shots, zero-pad.
 
     num_classes 117/24 groups by verb; 600 groups by interaction
     (object_n_verb_to_interaction LUT). Zero-shot: filtered HOI classes are
-    excluded and backfilled with N(0,1) rows (:703-708).
+    excluded and backfilled with N(0,1) rows (:703-708). The rows are as
+    wide as the pickle's features; ``dim`` where it holds none.
     """
     rng = np.random.default_rng(seed)
     feats = {k: [[] for _ in range(num_classes)]
@@ -153,7 +157,7 @@ def build_pair_cache(annotation: dict, num_classes: int, num_shot: int,
     # backfill: unseen interactions get random rows; verbs with no samples
     # get zero rows with identity labels (:690-708)
     d = next((f[0].shape[-1] for k in feats for f in feats[k] if f),
-             FEATURE_DIM)   # infer the embed dim from the pkl rows
+             dim)   # infer the embed dim from the pkl rows
     for c in range(num_classes):
         if feats["hum"][c]:
             continue
@@ -270,10 +274,11 @@ def build_global_cache(image_features: np.ndarray,
 
 
 def random_caches(num_classes: int, num_shot: int, num_objects: int = 80,
-                  seed: int = 0) -> UPTCaches:
+                  seed: int = 0, dim: int = FEATURE_DIM) -> UPTCaches:
     """Synthetic caches for tests and benchmarks, drawn from numpy's
     ``default_rng(seed)``: the same arrays as the JAX package's
-    ``random_caches`` for the same arguments."""
+    ``random_caches`` for the same arguments (its rows are 512 wide, the
+    default ``dim``). ``dim``: the CLIP embedding's width."""
     rng = np.random.default_rng(seed)
     r = num_classes * num_shot
 
@@ -287,15 +292,15 @@ def random_caches(num_classes: int, num_shot: int, num_objects: int = 80,
         m[o, rng.permutation(num_classes)[:max(
             1, num_classes // num_objects + 2)]] = 1
     return UPTCaches(
-        cache_h=f(r, FEATURE_DIM), cache_o=f(r, FEATURE_DIM),
-        cache_u=f(r, FEATURE_DIM), one_hots=one_hots,
+        cache_h=f(r, dim), cache_o=f(r, dim),
+        cache_u=f(r, dim), one_hots=one_hots,
         sample_lens=one_hots.sum(0),
-        clip_global_keys=f(r, FEATURE_DIM).T,
+        clip_global_keys=f(r, dim).T,
         dino_keys=f(r, 2048).T,
         object_class_multihot=m,
         object_embedding=rng.standard_normal(
-            (num_objects, FEATURE_DIM)).astype(np.float32),
-        origin_text_embeddings=f(num_classes, FEATURE_DIM),
+            (num_objects, dim)).astype(np.float32),
+        origin_text_embeddings=f(num_classes, dim),
         clip_global_values=one_hots.copy(),
         dino_values=one_hots.copy(),
     )

@@ -1,6 +1,7 @@
 """CLIP configuration (port of ``hoigen_tpu/models/clip/config.py``, with
 its defaults): the ViT or ModifiedResNet image tower and the text
-tower."""
+tower, and the OpenAI models the CLI's ``--clip-model`` names
+(:data:`CLIP_MODELS`)."""
 import dataclasses
 from typing import Optional, Tuple
 
@@ -73,3 +74,40 @@ class CLIPConfig:
 
 
 VIT_B16 = CLIPConfig()
+# OpenAI's ViT-L/14@336px (CLIP, arXiv:2103.00020, Table 20): 24 blocks of
+# 1024 in 16 heads, patch 14 at 336 (577 tokens), a 768-wide embedding
+# and a text tower of 12 blocks of 768 in 12 heads
+VIT_L14_336 = CLIPConfig(
+    embed_dim=768, image_resolution=336, vision_layers=24,
+    vision_width=1024, vision_patch_size=14, transformer_width=768,
+    transformer_heads=12, adapter_layers=tuple(range(24)))
+
+# --clip-model: OpenAI's own names
+CLIP_MODELS = {"ViT-B/16": VIT_B16, "ViT-L/14@336px": VIT_L14_336}
+
+
+def clip_model(name: str) -> CLIPConfig:
+    """The preset ``--clip-model`` names; raises on any other name."""
+    if name not in CLIP_MODELS:
+        raise ValueError(f"--clip-model {name!r}: not one of "
+                         f"{', '.join(CLIP_MODELS)}")
+    return CLIP_MODELS[name]
+
+
+def _image_tower(cfg: CLIPConfig):
+    return (cfg.rn_layers, cfg.vision_width, cfg.vision_layers,
+            cfg.vision_patch_size, cfg.image_resolution, cfg.embed_dim)
+
+
+def tower_name(cfg: CLIPConfig) -> str:
+    """The name of ``cfg``'s image tower: the preset's whose tower it is
+    (widths, depth, patch or stages, resolution, embedding), else one
+    made of those."""
+    for name, preset in CLIP_MODELS.items():
+        if _image_tower(preset) == _image_tower(cfg):
+            return name
+    if cfg.is_resnet:
+        return (f"RN-{cfg.vision_width}-"
+                f"{'-'.join(map(str, cfg.rn_layers))}@{cfg.image_resolution}px")
+    return (f"ViT-{cfg.vision_width}x{cfg.vision_layers}/"
+            f"{cfg.vision_patch_size}@{cfg.image_resolution}px")

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..detr.resnet import fold_bn
-from .config import CLIPConfig
+from .config import CLIPConfig, tower_name
 from .model import init_adapter_params
 
 
@@ -76,6 +76,25 @@ def infer_config(sd, use_adapter=True, adapter_pos="all",
                                                     vision_layers),
         adapter_num_layers=adapter_num_layers,
     )
+
+
+# the sizes a state dict's shapes fix (the heads do not: build_model takes
+# width // 64; the image resolution neither: the positional embedding is
+# resized to the configuration's)
+SHAPED = ("embed_dim", "vision_layers", "vision_width", "vision_patch_size",
+          "rn_layers", "context_length", "vocab_size", "transformer_width",
+          "transformer_layers")
+
+
+def check_shapes(inferred: CLIPConfig, cfg: CLIPConfig):
+    """Raise a ValueError naming every size in which a checkpoint
+    (``inferred``, :func:`infer_config`) differs from ``cfg``."""
+    wrong = [f"{k} {getattr(inferred, k)} (wanted {getattr(cfg, k)})"
+             for k in SHAPED if getattr(inferred, k) != getattr(cfg, k)]
+    if wrong:
+        raise ValueError(
+            f"the checkpoint holds {tower_name(inferred)}, not "
+            f"{tower_name(cfg)}: " + ", ".join(wrong))
 
 
 def _bilinear_resize(grid, out_h, out_w):
@@ -209,11 +228,13 @@ def torch_state_dict_to_params(sd, cfg: CLIPConfig = None, use_adapter=True,
                                gen=None):
     """state dict -> (params on the CPU, cfg). ``cfg`` overrides the
     inferred config (its image_resolution drives the positional-embedding
-    interpolation). ``gen``: the torch.Generator the missing adapters are
-    drawn from (None: one seeded with 0)."""
+    interpolation); a checkpoint of other sizes raises
+    (:func:`check_shapes`). ``gen``: the torch.Generator the missing
+    adapters are drawn from (None: one seeded with 0)."""
     inferred = infer_config(sd, use_adapter, adapter_pos, adapter_num_layers)
     if cfg is None:
         cfg = inferred
+    check_shapes(inferred, cfg)
     gen = gen if gen is not None else torch.Generator().manual_seed(0)
 
     if cfg.is_resnet:

@@ -26,6 +26,9 @@ from .clip.config import CLIPConfig
 from .clip.model import text_encoder_forward
 from .clip.tokenizer import tokenize
 
+# D, the features' width, by default: ViT-B/16's embedding, which is also
+# its text tower's width (main_finetune hands the generator's and the
+# context's inits its tower's widths; main_vae and finetune_ship keep 512)
 FEAT = 512
 
 
@@ -49,9 +52,11 @@ def encoder_forward(p, x):
             h @ p["log_var"]["w"].T + p["log_var"]["b"])
 
 
-def init_generator_params(gen):
-    return {"l1": _linear_init(gen, 4096, FEAT),
-            "l2": _linear_init(gen, FEAT, 4096)}
+def init_generator_params(gen, dim: int = FEAT):
+    """z (B, dim) -> a bias (B, dim) on the prompt's context tokens: dim
+    is the CLIP embedding's width, which has to be the text tower's."""
+    return {"l1": _linear_init(gen, 4096, dim),
+            "l2": _linear_init(gen, dim, 4096)}
 
 
 def generator_forward(p, z):
@@ -231,9 +236,9 @@ class GeneratorFamily:
 
 def synthesize_chunk(clip_params, clip_cfg: CLIPConfig,
                      family: GeneratorFamily, z, targets):
-    """One chunk of the synthesis: z (n, 512) through the family's
+    """One chunk of the synthesis: z (n, D) through the family's
     generator into the prompt of each target class (n,), the text tower,
-    L2 normalisation and the SHIP MLP where there is one. -> (n, 512)."""
+    L2 normalisation and the SHIP MLP where there is one. -> (n, D)."""
     bias = generator_forward(family.gen_params, z)
     text = prompted_text_features(clip_params, clip_cfg, family.ctx,
                                   family.tables, bias, targets)
@@ -255,7 +260,7 @@ def synthesize_features(families: dict, clip_params, clip_cfg: CLIPConfig,
     main_tip_finetune.py:763-772). z is drawn on the CPU from a
     ``torch.Generator`` seeded with ``seed`` and the family's index.
 
-    Returns numpy (gen_feature (3*N, 512) stacked [hoi; human; object],
+    Returns numpy (gen_feature (3*N, D) stacked [hoi; human; object],
     gen_target (3*N,) HOI ids, gen_verb (N,) verb ids), N = n_rounds *
     num_hoi."""
     n = n_rounds * num_hoi
@@ -270,10 +275,11 @@ def synthesize_features(families: dict, clip_params, clip_cfg: CLIPConfig,
         tgt_all = torch.as_tensor(targets[fam], device=dev)
         # the tables on the device once, not once a chunk
         gf = dataclasses.replace(gf, tables=tables_on(gf.tables, dev))
+        width = gf.gen_params["l1"]["w"].shape[1]       # z's
         feats = []
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            z = torch.randn((hi - lo, FEAT), generator=gen).to(dev)
+            z = torch.randn((hi - lo, width), generator=gen).to(dev)
             feats.append(synthesize_chunk(clip_params, clip_cfg, gf, z,
                                           tgt_all[lo:hi]).cpu())
         out[fam] = torch.cat(feats, 0).numpy()

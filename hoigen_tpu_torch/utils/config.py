@@ -133,6 +133,10 @@ class RunConfig:
     # where the program's tracer writes program_trace.json and
     # program_trace_summary.json (engine/profiling.py); None: tracing off
     trace_dir: Optional[str] = None
+    # the adapter-CLIP tower by OpenAI's name: "ViT-B/16" or
+    # "ViT-L/14@336px" (models/clip/config.py::CLIP_MODELS); the
+    # checkpoint at clip_model_path has to hold that model
+    clip_model: str = "ViT-B/16"
 
     def save(self, path: str):
         with open(path, "w") as f:

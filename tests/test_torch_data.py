@@ -170,16 +170,20 @@ def test_batches_from_factory_refuses_data_parallel(trees, monkeypatch):
 
 def test_run_config_matches_jax():
     """The JAX package's fields and defaults, then the port's own
-    ``trace_dir`` (off by default)."""
+    ``trace_dir`` (off by default) and ``clip_model`` (ViT-B/16, the JAX
+    package's one tower, by default)."""
+    own = [("trace_dir", None), ("clip_model", "ViT-B/16")]
     assert [(f.name, f.default) for f in dataclasses.fields(
         tconfig.RunConfig) if f.default is not dataclasses.MISSING] == \
         [(f.name, f.default) for f in dataclasses.fields(jconfig.RunConfig)
-         if f.default is not dataclasses.MISSING] + [("trace_dir", None)]
+         if f.default is not dataclasses.MISSING] + own
     argv = ["--num-classes", "600", "--zs", "true", "--zs-type",
             "unseen_verb", "--batch-size", "8", "--devices", "2"]
     assert dataclasses.asdict(tconfig.parse_config(argv)) == dict(
-        dataclasses.asdict(jconfig.parse_config(argv)), trace_dir=None)
+        dataclasses.asdict(jconfig.parse_config(argv)), **dict(own))
     assert tconfig.parse_config(["--trace-dir", "t"]).trace_dir == "t"
+    assert tconfig.parse_config(["--clip-model", "ViT-L/14@336px"]) \
+        .clip_model == "ViT-L/14@336px"
 
 
 def test_samplers_match_jax():
