@@ -48,7 +48,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    bytes, the epilogue kernel's launches a replay (one an epilogue
    site), the per-call weight check's host time; then a K3 and a K2
    weight written in place and a params tree with replaced tensors
-   between replays, each replay against a fresh eager step;
+   between replays, each replay against a fresh eager step; then the
+   staging of host batches of 32 at (1344, 1344) and (800, 1344): the
+   static inputs equal to the source, every load piped (the graph's
+   record), the mean ``graph.stage`` host time over 20 loads with the
+   staging pool's threads and the CPUs visible;
 6. check a small training step's loss and gradients on the card against
    the CPU, then drive the full-width training step (f32 towers, 117
    classes, one generated pair per image, the fused cache and CLIP's fused
@@ -70,7 +74,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    trainable leaf, a ``Trainer.restore`` and a params tree with a
    replaced tensor, one capture each; the frozen
    tensors bit-identical; an eval step after graphed training against one
-   after eager training;
+   after eager training; the staging of phase 5b with the training
+   batch's inputs;
 6c. on phase 6's configuration with the language-aware term on, in an
    NCCL process group of one, the training step over a mesh graphed with
    its collectives inside (``Trainer`` graphs a mesh step whose groups
@@ -1440,6 +1445,83 @@ def same_outputs(what, got, want):
     return diffs
 
 
+def staging_check(what, batch, seed, card):
+    """Phases 5b and 6b: the graphs' staging of host batches
+    (``engine/cuda_graph.py::_Graph.load``) at the cells' batch of 32 and
+    both planes, (1344, 1344) and (800, 1344): uint8 images drawn from
+    ``seed`` beside the phase's other inputs tiled to 32 rows, from numpy,
+    two batches in turn. After 1 + 20 loads the static inputs equal the
+    last batch on the card (``torch.equal``) and the graph's record shows
+    every load piped, in the chunks of ``chunk_plan``; a graph of the
+    small inputs alone pipes none. Logs the mean ``graph.stage`` host time over
+    the 20 loads and the time until their copies landed, with the pool's
+    threads, ``POOL_CAP`` and the CPUs visible. Needs the tracer on (the
+    phase's own). -> record."""
+    import numpy as np
+    import torch
+
+    from hoigen_tpu_torch.engine import cuda_graph as cg
+    from hoigen_tpu_torch.engine import profiling
+
+    def stage_span():
+        s = profiling.snapshot()["spans"].get("graph.stage", {})
+        return s.get("count", 0), s.get("total_ms", 0.0)
+
+    rows = 32
+    cpus = len(os.sched_getaffinity(0))
+    record = {"pool_cap": cg.POOL_CAP, "cpus": cpus,
+              "pool_threads": min(cg.POOL_CAP, cpus)}
+    gen = np.random.default_rng([seed, 21])
+    small = {k: np.resize(v.cpu().numpy(), (rows, *v.shape[1:]))
+             if v.ndim and len(v) == len(batch["images"]) else v.cpu().numpy()
+             for k, v in batch.items() if k != "images"}
+    for hw in ((1344, 1344), (800, 1344)):
+        feeds = [dict(small, images=gen.integers(0, 256, (rows, 3, *hw),
+                                                 np.uint8))
+                 for _ in range(2)]
+        g = cg._Graph(feeds[0], torch.device("cuda"))
+        g.load(feeds[1])
+        count, total = stage_span()
+        landed = []
+        for i in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.load(feeds[i % 2])
+            g.copied.synchronize()
+            landed.append(time.perf_counter() - t0)
+        count2, total2 = stage_span()
+        host_ms = (total2 - total) / max(count2 - count, 1)
+        same = all(torch.equal(g.static_in[k], torch.as_tensor(v).cuda())
+                   for k, v in feeds[1].items())
+        rec = g.record()
+        key = "x".join(map(str, hw))
+        nbytes = feeds[0]["images"].nbytes
+        record[key] = {"stage_ms": host_ms,
+                       "landed_ms": 1e3 * float(np.mean(landed)),
+                       "equal": same, "record": rec}
+        log(f"phase {what}: staging a batch of {rows} at {hw} "
+            f"({nbytes / 1e6:.1f} MB of images) from "
+            f"numpy: graph.stage {host_ms:.3f} ms a load on the host, "
+            f"{record[key]['landed_ms']:.3f} ms until the copies landed "
+            f"(mean of {count2 - count}); pool of {record['pool_threads']} "
+            f"threads (POOL_CAP {cg.POOL_CAP}, {cpus} CPUs visible); "
+            f"loads {rec['loads']}, piped {rec['piped_loads']}, "
+            f"{rec['chunks_per_piped_load']:g} chunks a piped load; static "
+            f"inputs equal to the source: {same}; on {card}")
+        if not same or rec["piped_loads"] != rec["loads"] or \
+                rec["chunks_per_piped_load"] != len(
+                    cg.chunk_plan(rows, nbytes)):
+            fail(f"phase {what}: staging at {hw}: equal {same}, {rec}")
+        del g
+    g = cg._Graph(small, torch.device("cuda"))
+    g.load(small)
+    record["small_alone"] = g.record()
+    if g.record()["piped_loads"]:
+        fail(f"phase {what}: the small inputs alone were piped: "
+             f"{g.record()}")
+    return record
+
+
 def graph_phase(model, batch, cfg, args, card, gstep):
     """Phase 5b: phase 5's graphed eval step ``gstep`` against the eager
     step on phase 5's model and feed: the outputs; both timed in one
@@ -1555,6 +1637,7 @@ def graph_phase(model, batch, cfg, args, card, gstep):
         cache_w.copy_(saved[0])
         layer1_w.copy_(saved[1])
     record["restored"], _ = after_change("weights restored", params)
+    record["staging"] = staging_check("5b", batch, args.seed, card)
     check = profiling.snapshot()["spans"]["graph.check"]
     profiling.disable()
     profiling.reset()
@@ -2270,6 +2353,7 @@ def train_graph_phase(model, batch, cfg, args, card):
 
     record["graphs"] = gstep.records()
     expect_epilogues("phase 6b", record["graphs"], cfg)
+    record["staging"] = staging_check("6b", batch, args.seed, card)
     check = profiling.snapshot()["spans"]["graph.check"]
     profiling.disable()
     profiling.reset()

@@ -53,13 +53,16 @@ check, and after a training replay the versions' bump), ``graph.stage``
 ``graph.stage_copy`` for the copies into pinned memory and the
 enqueues), ``graph.replay`` (the launch and the outputs' copies) and
 ``graph.capture`` (``graph.warmup``, ``graph.record``), and the device
-range ``stage`` around each input's copy to the card. The tracer's state
+range ``stage`` around the inputs' copies to the card. The tracer's state
 is read at capture: a graph captured while device ranges are timed keeps
 the ranges its step records (``engine/hoi_model.py``, ``models/upt.py``)
 as event nodes and times them at every replay; a graph captured with
 tracing off holds none, and stays so until it is captured again.
 """
+import concurrent.futures
 import operator
+import os
+import threading
 import time
 
 import numpy as np
@@ -75,6 +78,66 @@ from . import profiling
 # the kernel wrappers whose ``launches`` counters a replay keeps true
 COUNTED = (fused_attention, attention_bwd, fused_bottleneck_chain,
            fused_cache_logits, conv_epilogue)
+
+# a C-contiguous host input of this many bytes or more (and two rows or
+# more) is staged through the pipeline of ``_Graph.load``: a batch of
+# images at the training and eval buckets (102 to 173 MB at batch 32, 43 MB
+# a rank's batch of 8), not one image (2.7 MB) or the small inputs
+PIPE_BYTES = 8 << 20
+# the pipeline's chunk: whole rows, about this many bytes (one image row
+# of 3.2 or 5.4 MB at the 800 x 1344 and 1344 x 1344 buckets)
+CHUNK_BYTES = 4 << 20
+# the most threads of the staging pool: on an NVIDIA H100 host of 8 CPUs a
+# batch of 32 at 1344 x 1344 lands on the card soonest with 8 (10.3 ms on
+# the host, 12.0 until landed, against 22.6 and 25.9 for the whole copy on
+# one thread; 12 and 16 threads land later: tools/sweep_staging.py)
+POOL_CAP = 8
+
+_pool = None
+_pool_lock = threading.Lock()
+
+
+def staging_pool():
+    """The process's pool of staging threads, made at its first use: one a
+    CPU the process may run on, at most ``POOL_CAP``. Its copies
+    (``np.copyto``) run without the interpreter lock."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = concurrent.futures.ThreadPoolExecutor(
+                min(POOL_CAP, len(os.sched_getaffinity(0))),
+                thread_name_prefix="hoigen-stage")
+        return _pool
+
+
+def piped(v):
+    """Whether the host input ``v`` takes the staging pipeline: a
+    C-contiguous numpy array or CPU tensor of two rows or more and
+    ``PIPE_BYTES`` or more."""
+    if isinstance(v, np.ndarray):
+        dense = v.flags.c_contiguous
+    elif isinstance(v, torch.Tensor):
+        dense = not v.is_cuda and v.is_contiguous()
+    else:
+        return False
+    return dense and v.ndim >= 1 and v.shape[0] >= 2 and \
+        v.nbytes >= PIPE_BYTES
+
+
+def chunk_plan(rows, nbytes):
+    """The row ranges ``(start, stop)``, in order, in which the pipeline
+    copies an input of ``rows`` rows and ``nbytes`` bytes: whole rows of
+    about ``CHUNK_BYTES`` together, one row at least."""
+    per = max(1, CHUNK_BYTES * rows // max(nbytes, 1))
+    return [(a, min(a + per, rows)) for a in range(0, rows, per)]
+
+
+def byte_rows(x):
+    """A C-contiguous numpy array or CPU tensor as a numpy view of its
+    bytes, one row a leading index."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().reshape(len(x), -1).view(torch.uint8).numpy()
+    return x.reshape(len(x), -1).view(np.uint8)
 
 
 def signature(batch):
@@ -136,38 +199,72 @@ class _Graph:
         self.ranges = []
         self.deltas = [0] * len(COUNTED)
         self.captures = self.replays = 0
+        self.loads = self.piped_loads = self.piped_chunks = 0
         self.warmup_s = self.capture_s = 0.0
         self.pool_bytes = 0
 
     def load(self, batch):
         """Copy ``batch`` into the static inputs on the current stream:
         host arrays through pinned staging, without waiting for the card
-        beyond the staging's previous copy. The host's copies come first,
-        then every copy to the card is enqueued at once (the device range
-        ``stage``)."""
+        beyond the staging's previous copy. A host input that is
+        :func:`piped` is copied into its pinned buffer in row chunks
+        (:func:`chunk_plan`) by the :func:`staging_pool`, and each chunk's
+        copy to the card is enqueued as soon as it lands, in order, so
+        that the card copies while the host still does; every other input
+        is copied whole on the calling thread meanwhile, and its copy
+        enqueued first. The device range ``stage`` spans the copies to
+        the card."""
         with profiling.span("graph.stage"):
             with profiling.span("graph.stage_wait"):
                 self.copied.synchronize()
             with profiling.span("graph.stage_copy"):
-                sources = {}
-                for k, v in batch.items():
-                    if isinstance(v, torch.Tensor) and v.is_cuda:
-                        sources[k] = v
-                        continue
-                    stage = self.staging.get(k)
-                    if stage is None:
-                        dst = self.static_in[k]
-                        stage = self.staging[k] = torch.empty(
-                            dst.shape, dtype=dst.dtype, pin_memory=True)
-                    if isinstance(v, torch.Tensor):
-                        stage.copy_(v)
-                    else:
-                        np.copyto(stage.numpy(), v)
-                    sources[k] = stage
-                with profiling.device_range("stage"):
-                    for k, src in sources.items():
-                        self.static_in[k].copy_(src, non_blocking=True)
+                chunks = []
+                try:
+                    whole = self._pin(batch, chunks)
+                    with profiling.device_range("stage"):
+                        for k, src in whole.items():
+                            self.static_in[k].copy_(src, non_blocking=True)
+                        for k, a, b, landed in chunks:
+                            landed.result()
+                            self.static_in[k][a:b].copy_(
+                                self.staging[k][a:b], non_blocking=True)
+                finally:
+                    # no pool thread writes a buffer past this call
+                    concurrent.futures.wait([c[3] for c in chunks])
+                self.loads += 1
+                if chunks:
+                    self.piped_loads += 1
+                    self.piped_chunks += len(chunks)
                 self.copied.record()
+
+    def _pin(self, batch, chunks):
+        """Start the copies of ``batch``'s host inputs into their pinned
+        buffers: a piped input's chunks on the pool, each appended to
+        ``chunks`` as ``(key, start, stop, future)``; the others whole,
+        here. -> {key: the source of its whole copy to the card}."""
+        whole = {}
+        for k, v in batch.items():
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                whole[k] = v
+                continue
+            stage = self.staging.get(k)
+            if stage is None:
+                dst = self.static_in[k]
+                stage = self.staging[k] = torch.empty(
+                    dst.shape, dtype=dst.dtype, pin_memory=True)
+            if piped(v):
+                src, pinned = byte_rows(v), byte_rows(stage)
+                pool = staging_pool()
+                chunks += [(k, a, b, pool.submit(np.copyto, pinned[a:b],
+                                                 src[a:b]))
+                           for a, b in chunk_plan(len(src), src.nbytes)]
+                continue
+            if isinstance(v, torch.Tensor):
+                stage.copy_(v)
+            else:
+                np.copyto(stage.numpy(), v)
+            whole[k] = stage
+        return whole
 
     def capture(self, warmup, record, pool=None, generator=None):
         """Run ``warmup()`` eagerly on a side stream, then capture
@@ -238,10 +335,14 @@ class _Graph:
 
     def record(self):
         """The graph's counters, always kept: its captures and replays,
-        the warm-ups' and captures' host seconds over every capture, the
-        memory its last capture took from the pool and the counted
-        kernels' launches a replay."""
+        its loads, the loads that piped an input (:meth:`load`) and their
+        chunks a load, the warm-ups' and captures' host seconds over every
+        capture, the memory its last capture took from the pool and the
+        counted kernels' launches a replay."""
         return {"captures": self.captures, "replays": self.replays,
+                "loads": self.loads, "piped_loads": self.piped_loads,
+                "chunks_per_piped_load":
+                    self.piped_chunks / max(self.piped_loads, 1),
                 "warmup_s": self.warmup_s, "capture_s": self.capture_s,
                 "pool_bytes": self.pool_bytes,
                 "launches_per_replay": {

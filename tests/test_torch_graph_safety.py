@@ -12,10 +12,15 @@ DETR head (the V-COCO gather).
 The wrapper's logic that needs no card: the signature key, the weight
 check, the CPU path (the eager step, bit for bit), and, with the CUDA
 calls replaced by stand-ins that run the step eagerly at "capture", the
-capture, replay, recapture and launch-count bookkeeping.
+capture, replay, recapture and launch-count bookkeeping, and the staging
+of host inputs (the pipeline's chunks, the bytes, its counter, the wait
+for the previous copy, loads from many threads at once).
 """
 import contextlib
 import dataclasses
+import os
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -31,6 +36,18 @@ from hoigen_tpu_torch.ops.pixels import IMAGENET_MEAN, IMAGENET_STD
 
 from torch_graph_tools import UnsafeOps, stand_in_cuda, tracer, tracing
 from torch_port_common import DETR_HW, DETR_KW, eval_configs
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread while a test here runs: its steps are tiny, and
+    beside the other test workers more threads only contend (about 95 s
+    against 1.5 s for the bookkeeping test under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 def _model(tcfg, num_objects=10, seed=0):
     params, buffers = thm.init_hoi_model(
@@ -183,3 +200,136 @@ def test_capture_replay_and_recapture_bookkeeping(monkeypatch, tracer):
         == 5
     assert spans["graph.capture"]["count"] == 3 and \
         spans["graph.replay"]["count"] == 2
+
+
+# ---------------------------------------------------------------- staging
+@pytest.mark.parametrize("rows", [1, 7, 32])
+@pytest.mark.parametrize("nbytes", [cg.PIPE_BYTES - 1, cg.PIPE_BYTES,
+                                    173 << 20])
+def test_chunk_plan_covers_every_row_once(rows, nbytes):
+    plan = cg.chunk_plan(rows, nbytes)
+    assert [a for a, _ in plan] == [0] + [b for _, b in plan[:-1]]
+    assert plan[-1][1] == rows and all(a < b for a, b in plan)
+    # whole rows of about CHUNK_BYTES: one row, or no more than the chunk
+    row = nbytes / rows
+    assert all(b - a == 1 or (b - a) * row <= cg.CHUNK_BYTES
+               for a, b in plan)
+    assert len(plan) == 1 or (plan[0][1] + 1) * row > cg.CHUNK_BYTES
+    if rows >= 2 and nbytes >= cg.PIPE_BYTES:
+        assert len(plan) >= 2
+
+
+def _staged_feed(kind):
+    """A host batch of one kind, and whether its large input is piped
+    (with ``PIPE_BYTES`` at 4 KiB and ``CHUNK_BYTES`` at 1 KiB)."""
+    gen = np.random.default_rng(3)
+    small = {"image_sizes": gen.random((7, 2), dtype=np.float32),
+             "gt_count": gen.integers(1, 9, (7,), dtype=np.int32)}
+    big = {"uint8": gen.integers(0, 256, (7, 3, 16, 24), dtype=np.uint8),
+           "float32": gen.standard_normal((7, 3, 16, 24), np.float32),
+           "cpu_tensor": torch.from_numpy(
+               gen.standard_normal((7, 3, 16, 24), np.float32)),
+           "strided": gen.integers(0, 256, (7, 3, 16, 48),
+                                   dtype=np.uint8)[..., ::2],
+           "small": None}[kind]
+    feed = dict(small) if big is None else dict(small, images=big)
+    return feed, kind not in ("strided", "small")
+
+
+def _bytes(x):
+    return torch.as_tensor(np.ascontiguousarray(x)).view(torch.uint8)
+
+
+@pytest.mark.parametrize("kind", ["uint8", "float32", "cpu_tensor",
+                                  "strided", "small"])
+def test_staging_copies_the_source_bit_for_bit(monkeypatch, kind):
+    stand_in_cuda(monkeypatch, None, None)
+    monkeypatch.setattr(cg, "PIPE_BYTES", 4096)
+    monkeypatch.setattr(cg, "CHUNK_BYTES", 1024)
+    feed, pipes = _staged_feed(kind)
+    g = cg._Graph(feed, "cpu")
+    for step in range(2):
+        g.load(feed)
+        for k, v in feed.items():
+            assert torch.equal(g.static_in[k].view(torch.uint8),
+                               _bytes(v)), (k, step)
+        for v in feed.values():
+            v += 1                  # in place: a strided view stays one
+    assert cg.piped(feed.get("images", feed["image_sizes"])) == pipes
+    # a row is over 1 KiB: one row a chunk
+    assert g.record()["loads"] == 2
+    assert g.record()["piped_loads"] == (2 if pipes else 0)
+    assert g.record()["chunks_per_piped_load"] == (7 if pipes else 0)
+
+
+class _Copied:
+    """Stand-in for the staging's event, which keeps what was asked of
+    it, in order."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def record(self, stream=None):
+        self.calls.append("record")
+
+    def synchronize(self):
+        self.calls.append("synchronize")
+
+
+def test_a_second_load_waits_for_the_first_copy(monkeypatch):
+    stand_in_cuda(monkeypatch, None, None)
+    monkeypatch.setattr(cg, "PIPE_BYTES", 4096)
+    monkeypatch.setattr(cg, "CHUNK_BYTES", 1024)
+    feed, _ = _staged_feed("uint8")
+    g = cg._Graph(feed, "cpu")
+    calls = []
+    g.copied = _Copied(calls)
+    g.load(feed)
+    g.load(feed)
+    # each load waits for the staging's copy before it writes the pinned
+    # buffers, and marks its own copies after the last one's enqueue
+    assert calls == ["synchronize", "record"] * 2
+    assert g.record()["piped_loads"] == 2
+
+
+def test_loads_from_many_threads_share_one_pool(monkeypatch):
+    stand_in_cuda(monkeypatch, None, None)
+    monkeypatch.setattr(cg, "PIPE_BYTES", 4096)
+    monkeypatch.setattr(cg, "CHUNK_BYTES", 1024)
+    monkeypatch.setattr(cg, "_pool", None)
+    feeds = [_staged_feed(kind)[0] for kind in ("uint8", "float32")]
+    n = 16
+    graphs = [cg._Graph(feeds[i % 2], "cpu") for i in range(n)]
+    pools, errors = [None] * n, []
+
+    def work(i):
+        try:
+            for step in range(5):
+                feed = {k: v + step for k, v in feeds[i % 2].items()}
+                graphs[i].load(feed)
+                for k, v in feed.items():
+                    assert torch.equal(graphs[i].static_in[k]
+                                       .view(torch.uint8), _bytes(v))
+            pools[i] = cg.staging_pool()
+        except Exception as e:     # noqa: BLE001 (read on the main thread)
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    try:
+        assert not any(t.is_alive() for t in threads) and errors == []
+        assert all(p is pools[0] for p in pools) and pools[0] is not None
+        assert pools[0]._max_workers == min(
+            cg.POOL_CAP, len(os.sched_getaffinity(0)))
+        assert all(g.record()["piped_loads"] == 5 for g in graphs)
+    finally:
+        cg._pool.shutdown()

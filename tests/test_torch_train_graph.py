@@ -31,6 +31,18 @@ from torch_graph_tools import TapedCapture, TapedGraph, UnsafeOps, \
     stand_in_cuda, tracer, tracing
 from torch_port_common import DETR_HW, eval_configs
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread while a test here runs: its steps are tiny, and
+    beside the other test workers more threads only contend (the file took
+    574 s under six workers, 21 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LR_DROP = 3
 
 
